@@ -6,23 +6,32 @@
 Phases (any failure exits non-zero before the result line):
 
   1. build: compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
-     with nvcc (sm_90a) and prints the compiler's register/shared-memory
-     report;
+     with nvcc (sm_90a), prints the compiler's register/shared-memory/spill
+     report and each kernel's persistent grid, and fails if a kernel spills;
   2. kernels: runs each kernel and its plain PyTorch version on the card on
      the same inputs, at the main path's shapes (900 boxes, 70x70 tiles,
-     the capacity the Simulation picks) with the initial electrons binned,
-     and on adversarial counts (all boxes empty, all particles in one box,
-     every box at capacity, counts 1/255/256/257, particles on the box
-     edges).  Counters must be bitwise equal, pushed state within rtol 2e-5 /
-     atol 1e-6, J within 2e-5·max|J|.  Times both with CUDA events (median of
-     10 after a warm-up);
+     the capacity the Simulation picks) with the initial electrons binned
+     (in the order they are made, cell by cell, and with each box's lanes
+     shuffled), and on adversarial counts (all boxes empty, all particles
+     in one box, every box at capacity, counts 1/255/256/257, particles on
+     the box edges, counts at span boundaries, only the last box occupied,
+     alternate boxes empty).  Counters must be bitwise equal, pushed state
+     within rtol 2e-5 / atol 1e-6, J within 2e-5·max|J|; the in-place
+     ``gather_push_move_`` must give the functional form's result bitwise
+     and leave every lane past the last executed chunk bitwise unchanged;
+     both kernels launched with spans of 1 and of cap/tile chunks must give
+     the default span's results.  Times each kernel's launch alone (spans
+     and outputs prepared before the window) and its plain version with
+     CUDA events (median of 10 after a warm-up), the in-place push on
+     copies made once, on both orders of the electrons;
   3. main path: ``Simulation.run`` of the laser-ion problem on the paper's
      1920² grid (64² boxes, mass ratio 1836, 16 particles per cell per
      species) for 20 steps (2 LB rounds), every interval under
      ``torch.cuda.set_sync_debug_mode("error")``; each kernel must launch
      steps x species times, and the fetched work counters must equal
      ``box_work_counters`` of the fetched per-species counts; then one more
-     interval under ``torch.profiler`` prints where the step's time goes;
+     interval under ``torch.profiler`` prints where the step's time goes,
+     with each kernel's device time per launch;
   4. backends: ``engine_backend="cuda"`` against ``"torch"`` at 256² for 10
      steps: energies within rtol 1e-3, the same particle census and LB steps.
 
@@ -34,6 +43,7 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -77,6 +87,9 @@ def cuda_time_ms(fn, reps: int = 10) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        # keep the card busy while the host enqueues, so the window holds
+        # device work only, not the host's launch latency
+        torch.cuda._sleep(1_000_000)
         start.record()
         fn()
         end.record()
@@ -101,11 +114,26 @@ def kernel_inputs(case: str, n_boxes: int, cap: int, gen, binned=None):
     import torch
 
     from repro_torch.kernels.common import HALO
+    from repro_torch.kernels._tensors import SPAN_CHUNKS
 
     dev = "cuda"
     if case == "main":
         b = binned
         return b.counts, b.sz, b.sx, b.ux, b.uy, b.uz
+    if case == "main-shuffled":
+        # the same electrons with each box's live lanes in random order (the
+        # order a long run drifts toward), padding lanes where they were
+        b = binned
+        n_run = int(b.counts.max())
+        lane = torch.arange(n_run, device=dev)[None, :]
+        key = torch.rand((n_boxes, n_run), generator=gen, device=dev)
+        perm = torch.where(lane < b.counts[:, None], key, 2.0 + lane.float()).argsort(dim=1)
+        out = []
+        for a in (b.sz, b.sx, b.ux, b.uy, b.uz):
+            shuffled = a.clone()
+            shuffled[:, :n_run] = a[:, :n_run].gather(1, perm)
+            out.append(shuffled)
+        return (b.counts, *out)
     if case == "all-empty":
         counts = torch.zeros(n_boxes, dtype=torch.int32, device=dev)
     elif case == "all-in-one-box":
@@ -119,6 +147,17 @@ def kernel_inputs(case: str, n_boxes: int, cap: int, gen, binned=None):
         )[:n_boxes]
     elif case == "box-edges":
         counts = torch.randint(0, cap + 1, (n_boxes,), generator=gen, device=dev).to(torch.int32)
+    elif case == "span-boundaries":
+        span = SPAN_CHUNKS * 256
+        counts = torch.tensor([span - 1, span, span + 1], dtype=torch.int32, device=dev).repeat(
+            (n_boxes + 2) // 3
+        )[:n_boxes].clamp(max=cap)
+    elif case == "last-box-only":
+        counts = torch.zeros(n_boxes, dtype=torch.int32, device=dev)
+        counts[-1] = cap - 1
+    elif case == "alternate-empty":
+        counts = torch.randint(1, cap + 1, (n_boxes,), generator=gen, device=dev).to(torch.int32)
+        counts[1::2] = 0
     else:
         raise ValueError(case)
     shape = (n_boxes, cap)
@@ -142,12 +181,35 @@ def kernel_inputs(case: str, n_boxes: int, cap: int, gen, binned=None):
     return counts, sz, sx, ux, uy, uz
 
 
+def check_deposition(case: str, kd, pd, errs: dict) -> None:
+    """Deposition outputs ``kd`` against the plain version's ``pd``."""
+    import torch
+
+    if not torch.equal(kd[3], pd[3]):
+        raise AssertionError(f"deposition counters differ ({case})")
+    for name, k, p in zip(("jx", "jy", "jz"), kd[:3], pd[:3]):
+        scale = max(float(p.abs().max()), 1e-30)
+        err = float((k - p).abs().max())
+        if err > 2e-5 * scale:
+            raise AssertionError(f"deposition {name} differs ({case}): {err} > 2e-5*{scale}")
+        errs["deposition"] = max(errs["deposition"], err)
+
+
 def kernel_phase(sim, record: dict) -> None:
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.deposition import deposit_local_tiles, deposit_local_tiles_plain
-    from repro_torch.kernels.gather_push import gather_push_move, gather_push_move_plain
+    from repro_torch.kernels.deposition import (
+        deposit_local_tiles,
+        deposit_local_tiles_plain,
+        deposition_launcher,
+    )
+    from repro_torch.kernels.gather_push import (
+        gather_push_launcher,
+        gather_push_move,
+        gather_push_move_,
+        gather_push_move_plain,
+    )
 
     grid, cap = sim.grid, sim.kernel_cap
     n_boxes = grid.n_boxes
@@ -163,11 +225,30 @@ def kernel_phase(sim, record: dict) -> None:
     qm = e.q / e.m
     dt = grid.dt
     errs = {"gather_push": 0.0, "deposition": 0.0}
-    for case in ("main", "all-empty", "all-in-one-box", "at-capacity", "tile-boundaries", "box-edges"):
+    cases = ("main", "main-shuffled", "all-empty", "all-in-one-box", "at-capacity",
+             "tile-boundaries", "box-edges", "span-boundaries", "last-box-only",
+             "alternate-empty")
+    for case in cases:
         counts, sz, sx, ux, uy, uz = kernel_inputs(case, n_boxes, cap, gen, binned)
-        args = (counts, sz, sx, ux, uy, uz, tiles)
+        arrays = (sz, sx, ux, uy, uz)
+        args = (counts, *arrays, tiles)
         kw = dict(grid=grid, qm=qm, dt=dt)
         k_out = gather_push_move(*args, **kw)
+        # the in-place form: the functional form's result bitwise, and every
+        # lane past the box's last executed chunk untouched
+        in_place = [a.clone() for a in arrays]
+        k_cnt = gather_push_move_(counts, *in_place, tiles, **kw)
+        torch.cuda.synchronize()
+        exec_per_box = ((counts.long() + 255) // 256) * 256
+        skipped = torch.arange(cap, device="cuda")[None, :] >= exec_per_box[:, None]
+        if not torch.equal(k_cnt, k_out[5]):
+            raise AssertionError(f"gather_push_move_ counters differ from the functional form ({case})")
+        for name, a, f, old in zip(("sz", "sx", "ux", "uy", "uz"), in_place, k_out, arrays):
+            if not torch.equal(a.view(torch.int32), f.view(torch.int32)):
+                raise AssertionError(f"gather_push_move_ {name} differs from the functional form ({case})")
+            if bool(((a.view(torch.int32) != old.view(torch.int32)) & skipped).any()):
+                raise AssertionError(f"gather_push_move_ changed {name} past the executed chunks ({case})")
+        del in_place, skipped, exec_per_box
         p_out = gather_push_move_plain(*args, **kw)
         torch.cuda.synchronize()
         if not torch.equal(k_out[5], p_out[5]):
@@ -186,40 +267,78 @@ def kernel_phase(sim, record: dict) -> None:
         kd = deposit_local_tiles(*dep_args, grid=grid)
         pd = deposit_local_tiles_plain(*dep_args, grid=grid)
         torch.cuda.synchronize()
-        if not torch.equal(kd[3], pd[3]):
-            raise AssertionError(f"deposition counters differ ({case})")
-        for name, k, p in zip(("jx", "jy", "jz"), kd[:3], pd[:3]):
-            scale = max(float(p.abs().max()), 1e-30)
-            err = float((k - p).abs().max())
-            if err > 2e-5 * scale:
-                raise AssertionError(f"deposition {name} differs ({case}): {err} > 2e-5*{scale}")
-            errs["deposition"] = max(errs["deposition"], err)
-        log(f"kernels: case {case:16s} ok  (boxes with particles: {int((counts > 0).sum())})")
-        if case == "main":
+        check_deposition(case, kd, pd, errs)
+        spans_checked = ""
+        if case in ("span-boundaries", "alternate-empty"):
+            # the span size reaches the kernels as a launch argument: spans of
+            # one chunk, and of a whole box, give the default span's results
+            for g in (1, cap // 256):
+                pushed = [a.clone() for a in arrays]
+                launch, g_cnt = gather_push_launcher(counts, pushed, tiles, span_chunks=g, **kw)
+                launch()
+                torch.cuda.synchronize()
+                if not (torch.equal(g_cnt, k_out[5]) and all(
+                    torch.equal(a.view(torch.int32), f.view(torch.int32))
+                    for a, f in zip(pushed, k_out[:5])
+                )):
+                    raise AssertionError(f"gather_push with spans of {g} chunks differs ({case})")
+                del pushed
+                launch, g_dep = deposition_launcher(*dep_args, grid=grid, span_chunks=g)
+                launch()
+                torch.cuda.synchronize()
+                check_deposition(f"{case}, spans of {g} chunks", g_dep, pd, errs)
+                del g_dep
+            spans_checked = f", spans of 1 and {cap // 256} chunks ok"
+        log(f"kernels: case {case:16s} ok  (boxes with particles: {int((counts > 0).sum())}){spans_checked}")
+        if case in ("main", "main-shuffled"):
             exec_lanes = int((((counts.long() + 255) // 256) * 256).sum())
-            gp_ms = cuda_time_ms(lambda: gather_push_move(*args, **kw))
-            gp_plain = cuda_time_ms(lambda: gather_push_move_plain(*args, **kw))
-            dp_ms = cuda_time_ms(lambda: deposit_local_tiles(*dep_args, grid=grid))
-            dp_plain = cuda_time_ms(lambda: deposit_local_tiles_plain(*dep_args, grid=grid))
-            lanes = n_boxes * cap
-            tile_bytes = n_boxes * bzx * bzx * 4
-            gp_bound = bound_ms(
-                2 * 5 * lanes * 4 + 6 * tile_bytes + 2 * n_boxes * 4 + 4,
-                exec_lanes * GATHER_PUSH_FLOPS_PER_LANE,
-            )
-            dp_bound = bound_ms(
-                5 * exec_lanes * 4 + 3 * tile_bytes + 2 * n_boxes * 4,
-                exec_lanes * DEPOSITION_FLOPS_PER_LANE,
-            )
-            record["gather_push"].update(ms=gp_ms, plain_ms=gp_plain, bound_ms=gp_bound[0], bound_by=gp_bound[1])
-            record["deposition"].update(ms=dp_ms, plain_ms=dp_plain, bound_ms=dp_bound[0], bound_by=dp_bound[1])
-            log(
-                f"kernels: main case executed lanes {exec_lanes} of {lanes}; "
-                f"gather_push {gp_ms:.3f} ms (plain {gp_plain:.3f}, bound {gp_bound[0]:.3f} by {gp_bound[1]}); "
-                f"deposition {dp_ms:.3f} ms (plain {dp_plain:.3f}, bound {dp_bound[0]:.3f} by {dp_bound[1]})"
-            )
-        del args, dep_args, k_out, kd, pd, v, counts, sz, sx, ux, uy, uz
-        binned = None  # the main case's binned electrons (~11 GB at full size)
+            occupied = int((counts > 0).sum())
+            # each kernel's launch alone, its arguments prepared once; the
+            # in-place push works on copies: its work depends only on the
+            # counts, so repeated pushes of the same lanes time the same work
+            scratch = [a.clone() for a in arrays]
+            launch, _ = gather_push_launcher(counts, scratch, tiles, **kw)
+            gp_ms = cuda_time_ms(launch)
+            launch, _ = deposition_launcher(*dep_args, grid=grid)
+            dp_ms = cuda_time_ms(launch)
+            del scratch, launch
+            if case == "main-shuffled":
+                log(
+                    f"kernels: main case, each box's lanes shuffled: gather_push_move_ {gp_ms:.3f} ms, "
+                    f"deposition {dp_ms:.3f} ms"
+                )
+            else:
+                gp_plain = cuda_time_ms(lambda: gather_push_move_plain(*args, **kw))
+                dp_plain = cuda_time_ms(lambda: deposit_local_tiles_plain(*dep_args, grid=grid))
+                lanes = n_boxes * cap
+                tile_bytes = n_boxes * bzx * bzx * 4
+                # in place: read and write 5 floats per executed lane, read
+                # the six tiles of each occupied box, read counts, write counters
+                gp_bound = bound_ms(
+                    40 * exec_lanes + 24 * bzx * bzx * occupied + 2 * n_boxes * 4,
+                    exec_lanes * GATHER_PUSH_FLOPS_PER_LANE,
+                )
+                # the functional form's bound (every padded lane in and out)
+                gp_bound_functional = bound_ms(
+                    2 * 5 * lanes * 4 + 6 * tile_bytes + 2 * n_boxes * 4 + 4,
+                    exec_lanes * GATHER_PUSH_FLOPS_PER_LANE,
+                )
+                dp_bound = bound_ms(
+                    5 * exec_lanes * 4 + 3 * tile_bytes + 2 * n_boxes * 4,
+                    exec_lanes * DEPOSITION_FLOPS_PER_LANE,
+                )
+                record["gather_push"].update(ms=gp_ms, plain_ms=gp_plain, bound_ms=gp_bound[0], bound_by=gp_bound[1])
+                record["deposition"].update(ms=dp_ms, plain_ms=dp_plain, bound_ms=dp_bound[0], bound_by=dp_bound[1])
+                log(
+                    f"kernels: main case executed lanes {exec_lanes} of {lanes}, {occupied} occupied boxes; "
+                    f"gather_push_move_ {gp_ms:.3f} ms (plain {gp_plain:.3f}, bound {gp_bound[0]:.4f} by "
+                    f"{gp_bound[1]}; the functional form's bound {gp_bound_functional[0]:.3f} by "
+                    f"{gp_bound_functional[1]}); "
+                    f"deposition {dp_ms:.3f} ms (plain {dp_plain:.3f}, bound {dp_bound[0]:.4f} by {dp_bound[1]})"
+                )
+        del args, arrays, dep_args, k_out, kd, pd, v, counts, sz, sx, ux, uy, uz
+        if case == "main-shuffled":
+            binned = None  # the binned electrons (~11 GB at full size)
         torch.cuda.empty_cache()
     record["gather_push"]["max_abs_err"] = errs["gather_push"]
     record["deposition"]["max_abs_err"] = errs["deposition"]
@@ -310,8 +429,15 @@ def profile_interval(sim, top: int = 12) -> None:
         f"({100 * busy / wall_ms:.1f}%, idle {100 * (1 - busy / wall_ms):.1f}%), "
         f"launch queue full {queue_full_ms:.1f} ms"
     )
-    for ms, count, name in rows[:top]:
-        log(f"profile: {ms / 10:9.3f} ms/step {100 * ms / busy:5.1f}%  x{count // 10:<4d} {name[:90]}")
+    # the top rows, and the port's two kernels wherever they rank
+    ours = ("gather_push_kernel", "deposition_kernel")
+    for i, (ms, count, name) in enumerate(rows):
+        if i < top or any(k in name for k in ours):
+            log(f"profile: {ms / 10:9.3f} ms/step {100 * ms / busy:5.1f}%  x{count // 10:<4d} {name[:90]}")
+        if any(k in name for k in ours):
+            log(f"profile: {name[:40]} {ms / count:.3f} ms of device time per launch ({count} launches)")
+    kernels_ms = sum(ms for ms, _, name in rows if any(k in name for k in ours))
+    log(f"profile: the two PIC kernels {kernels_ms / 10:.3f} ms/step of device time")
 
 
 def backends_phase() -> None:
@@ -360,14 +486,20 @@ def main() -> int:
     log(f"card: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
-    from repro_torch.kernels._build import build_info, load_library
+    from repro_torch.kernels._build import build_info, load_library, persistent_blocks
 
     load_library()
     info = build_info()
     log(f"build: {info['seconds']:.1f} s (compiled here: {info['built']})")
+    spills = []
     for line in str(info["log"]).splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"build: {line.strip()}")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and (int(m.group(1)) or int(m.group(2))):
+            spills.append(line.strip())
+    if spills:
+        raise AssertionError(f"a kernel spills registers: {spills}")
 
     from repro_torch.pic import SimConfig, Simulation, laser_ion_problem
     from repro_torch.pic.deposition import box_particle_counts
@@ -391,10 +523,19 @@ def main() -> int:
         f"{[int(p.alive.sum()) for p in sim.species]} particles per species, cap {sim.kernel_cap}"
     )
 
+    bzx = sim.grid.box_nz + 6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for kernel, n_tiles in (("gather_push", 6), ("deposition", 3)):
+        blocks = persistent_blocks(kernel, bzx, bzx, torch.cuda.current_device())
+        log(
+            f"build: {kernel} persistent grid {blocks} blocks ({blocks / sms:g} per SM, {sms} SMs), "
+            f"{n_tiles * bzx * bzx * 4} B of dynamic shared memory per block"
+        )
+
     source = "src/repro_torch/kernels/csrc/"
     record = {
         "gather_push": dict(
-            name="gather_push_move", route="cuda", source=source + "gather_push.cu",
+            name="gather_push_move_", route="cuda", source=source + "gather_push.cu",
             replaces="src/repro/kernels/gather_push.py:28", library_ms=None,
         ),
         "deposition": dict(

@@ -21,9 +21,9 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
-__all__ = ["load_library", "build_info", "NVCC_FLAGS"]
+__all__ = ["load_library", "build_info", "persistent_blocks", "NVCC_FLAGS"]
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -41,15 +41,20 @@ NVCC_FLAGS = [
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 
 #: C signatures of the launchers (every pointer and the stream as c_void_p)
+#: and of the queries of their persistent grids
 _SIGNATURES = {
-    "gather_push_launch": [_V] * 19 + [_I] * 5 + [_F] * 3 + [_V],
-    "deposition_launch": [_V] * 10 + [_I] * 6 + [_V],
+    "gather_push_launch": [_V] * 15 + [_I] * 7 + [_F] * 3 + [_V],
+    "deposition_launch": [_V] * 11 + [_I] * 7 + [_V],
+    "gather_push_blocks": [_I, _I, _IP],
+    "deposition_blocks": [_I, _I, _IP],
 }
 
 _lib: Optional[ctypes.CDLL] = None
 _info: Dict[str, object] = {}
+_blocks: Dict[Tuple[str, int, int, int], int] = {}
 
 
 def _nvcc() -> str:
@@ -139,3 +144,19 @@ def build_info() -> Dict[str, object]:
     compiler log (``-Xptxas -v``: registers, shared memory, spills) of the
     library :func:`load_library` returned; empty before the first load."""
     return dict(_info)
+
+
+def persistent_blocks(kernel: str, bz: int, bx: int, device: int) -> int:
+    """Blocks of the persistent grid that ``kernel`` (``"gather_push"`` or
+    ``"deposition"``) launches for (bz, bx) tiles on CUDA device ``device``,
+    the current one: resident blocks per SM times SMs.  Queried once per
+    (kernel, tiles, device); the query also sets the kernel's shared-memory
+    limit on that device, which its launches need."""
+    key = (kernel, int(bz), int(bx), int(device))
+    if key not in _blocks:
+        blocks = ctypes.c_int(0)
+        err = getattr(load_library(), f"{kernel}_blocks")(bz, bx, ctypes.byref(blocks))
+        if err != 0:
+            raise RuntimeError(f"{kernel} occupancy query failed: cudaError {err}")
+        _blocks[key] = blocks.value
+    return _blocks[key]

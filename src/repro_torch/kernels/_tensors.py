@@ -5,7 +5,11 @@ from typing import Iterator, Sequence, Tuple
 
 import torch
 
-__all__ = ["check_binned", "scalar_tensor", "plain_box_groups"]
+__all__ = ["check_binned", "scalar_tensor", "plain_box_groups", "span_table", "SPAN_CHUNKS"]
+
+#: chunks per span of the CUDA kernels' work list: the wrappers build the
+#: table with it and pass it to the kernels (csrc/common.cuh)
+SPAN_CHUNKS = 8
 
 #: lanes per group in the plain versions: bounds their temporaries
 #: (tens of (boxes, cap) float32 arrays) at full size
@@ -49,3 +53,21 @@ def plain_box_groups(n_boxes: int, cap: int) -> Iterator[slice]:
     per = max(1, _PLAIN_GROUP_LANES // max(cap, 1))
     for b0 in range(0, n_boxes, per):
         yield slice(b0, min(n_boxes, b0 + per))
+
+
+def span_table(
+    counts: torch.Tensor, cap: int, tile: int, span_chunks: int = SPAN_CHUNKS
+) -> torch.Tensor:
+    """The CUDA kernels' span work list: the ``(n_boxes + 1,)`` int32
+    exclusive prefix over boxes of ``ceil(chunks / span_chunks)``, where a
+    box runs ``chunks = min(ceil(count / tile), cap / tile)`` chunks.  Entry
+    ``n_boxes`` is the total.  Built on ``counts``' device without a host
+    synchronisation; a kernel given the table is given the same
+    ``span_chunks`` (``csrc/common.cuh`` says how the kernels walk it)."""
+    if span_chunks < 1:
+        raise ValueError(f"span_chunks must be at least 1, got {span_chunks}")
+    chunks = torch.clamp((counts.to(torch.int32) + (tile - 1)) // tile, 0, cap // tile)
+    spans = (chunks + (span_chunks - 1)) // span_chunks
+    table = torch.zeros(counts.shape[0] + 1, dtype=torch.int32, device=counts.device)
+    table[1:] = torch.cumsum(spans, 0, dtype=torch.int32)
+    return table

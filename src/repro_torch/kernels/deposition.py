@@ -5,26 +5,28 @@ Counterpart of ``repro.kernels.deposition`` (the TPU kernel
 ``_deposition_kernel``).  :func:`deposit_local_tiles` launches the CUDA
 kernel ``csrc/deposition.cu`` for CUDA tensors and runs
 :func:`deposit_local_tiles_plain`, the same contract in plain PyTorch, for
-CPU tensors.  Block layout per box b:
+CPU tensors.  Layout, per box b:
 
   in : counts (B,) i32 | sz, sx, vx, vy, vz (B, cap) f32
   out: jx, jy, jz (B, BZ, BX) f32 | counter (B,) i32
 
 with BZ = box_nz + 2·HALO, BX = box_nx + 2·HALO unless ``tile_shape``
-overrides them.
+overrides them.  On the H100 the kernel is bound by its shared-memory
+atomics (48 per executed lane); its source note says how the design
+spreads them over all SMs.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from ..pic.grid import Grid2D
-from ._tensors import check_binned, plain_box_groups
+from ._tensors import SPAN_CHUNKS, check_binned, plain_box_groups, span_table
 from .common import HALO, cubic_weights
 from .constants import CELL_OPS, DEPOSIT_OPS, DEPOSIT_TILE
 
-__all__ = ["deposit_local_tiles", "deposit_local_tiles_plain"]
+__all__ = ["deposit_local_tiles", "deposit_local_tiles_plain", "deposition_launcher"]
 
 
 def _geometry(grid: Grid2D, tile_shape, cells_per_box) -> Tuple[int, int, int]:
@@ -99,6 +101,61 @@ def deposit_local_tiles_plain(
     return tuple(j[:n_tile].view(shape) for j in (jx, jy, jz)) + (cnt,)
 
 
+def deposition_launcher(
+    counts: torch.Tensor,
+    sz: torch.Tensor,
+    sx: torch.Tensor,
+    vx: torch.Tensor,
+    vy: torch.Tensor,
+    vz: torch.Tensor,
+    *,
+    grid: Grid2D,
+    tile: int = DEPOSIT_TILE,
+    tile_shape=None,
+    cells_per_box: Optional[int] = None,
+    span_chunks: int = SPAN_CHUNKS,
+) -> Tuple[Callable[[], None], Tuple[torch.Tensor, ...]]:
+    """Check CUDA arguments and prepare the kernel's launch: returns
+    ``(launch, (jx, jy, jz, cnt))`` with zeroed tiles and the counters'
+    grid term.  Each ``launch()`` launches ``csrc/deposition.cu`` once and
+    adds into them.  :func:`deposit_local_tiles` calls it once; apart, it
+    lets a timing cover the launch alone.  ``span_chunks`` is the span size
+    of the work list."""
+    from ._build import load_library, persistent_blocks
+
+    device = sz.device
+    if device.type != "cuda":
+        raise ValueError(f"the deposition kernel runs on cuda tensors, got {device}")
+    arrays = (sz, sx, vx, vy, vz)
+    n_boxes, cap = check_binned(counts, arrays, tile)
+    bz, bx, cells = _geometry(grid, tile_shape, cells_per_box)
+    counts32 = counts.to(device=device, dtype=torch.int32).contiguous()
+    spans = span_table(counts32, cap, tile, span_chunks)
+    jx, jy, jz = (
+        torch.zeros((n_boxes, bz, bx), dtype=torch.float32, device=device) for _ in range(3)
+    )
+    # the counters' grid term; the kernel adds the executed chunks' term
+    cnt = torch.full((n_boxes,), cells * CELL_OPS, dtype=torch.int32, device=device)
+    lib = load_library()
+    blocks = persistent_blocks("deposition", bz, bx, torch.cuda.current_device())
+    args = (
+        counts32.data_ptr(), spans.data_ptr(),
+        *(a.data_ptr() for a in arrays),
+        jx.data_ptr(), jy.data_ptr(), jz.data_ptr(), cnt.data_ptr(),
+        n_boxes, cap, tile, bz, bx, span_chunks, blocks,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+
+    def launch() -> None:
+        err = lib.deposition_launch(*args)
+        if err != 0:
+            raise RuntimeError(f"deposition kernel launch failed: cudaError {err}")
+        deposit_local_tiles.launches += 1
+
+    launch.tensors = (counts32, spans, arrays)  # alive while args point at them
+    return launch, (jx, jy, jz, cnt)
+
+
 def deposit_local_tiles(
     counts: torch.Tensor,
     sz: torch.Tensor,
@@ -120,7 +177,11 @@ def deposit_local_tiles(
     ``cells_per_box`` overrides the counter's grid-work term so counters
     stay bit-identical to ``box_work_counters`` on padded tiles.
 
-    CUDA tensors launch the kernel; CPU tensors run the plain version.
+    CUDA tensors launch the kernel: persistent blocks walk the span work
+    list (:func:`._tensors.span_table`), each accumulating into its own
+    shared tiles and adding them to the zeroed output tiles with atomics
+    when its box changes, so J's last bits vary from run to run.  CPU
+    tensors run the plain version.
     """
     device = sz.device
     if device.type == "cpu":
@@ -130,27 +191,12 @@ def deposit_local_tiles(
         )
     if device.type != "cuda":
         raise ValueError(f"deposit_local_tiles runs on cuda or cpu tensors, got {device}")
-    from ._build import load_library
-
-    n_boxes, cap = check_binned(counts, (sz, sx, vx, vy, vz), tile)
-    bz, bx, cells = _geometry(grid, tile_shape, cells_per_box)
-    counts32 = counts.to(device=device, dtype=torch.int32).contiguous()
-    jx, jy, jz = (
-        torch.empty((n_boxes, bz, bx), dtype=torch.float32, device=device) for _ in range(3)
+    launch, out = deposition_launcher(
+        counts, sz, sx, vx, vy, vz, grid=grid, tile=tile,
+        tile_shape=tile_shape, cells_per_box=cells_per_box,
     )
-    cnt = torch.empty(n_boxes, dtype=torch.int32, device=device)
-    lib = load_library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.deposition_launch(
-        counts32.data_ptr(),
-        *(a.data_ptr() for a in (sz, sx, vx, vy, vz)),
-        jx.data_ptr(), jy.data_ptr(), jz.data_ptr(), cnt.data_ptr(),
-        n_boxes, cap, tile, bz, bx, cells, stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"deposition kernel launch failed: cudaError {err}")
-    deposit_local_tiles.launches += 1
-    return jx, jy, jz, cnt
+    launch()
+    return out
 
 
 #: launches of the CUDA kernel in this process (the plain version does not count)

@@ -1,26 +1,30 @@
 """Fused staggered field gather + Boris push + move, per box.
 
 Counterpart of ``repro.kernels.gather_push`` (the TPU kernel
-``_gather_push_kernel``).  :func:`gather_push_move` launches the CUDA kernel
-``csrc/gather_push.cu`` for CUDA tensors and runs
-:func:`gather_push_move_plain`, the same contract in plain PyTorch, for CPU
-tensors.  Gather staggering pairs (z, x):
+``_gather_push_kernel``).  :func:`gather_push_move_` updates the binned
+arrays in place: it launches the CUDA kernel ``csrc/gather_push.cu`` for
+CUDA tensors and runs :func:`gather_push_move_plain`, the same contract in
+plain PyTorch, for CPU tensors.  :func:`gather_push_move` is the JAX
+function's form, on copies.  On the H100 the kernel is bound by its
+shared-memory gathers and arithmetic over the executed lanes; its source
+note says how the design spreads them over all SMs.  Gather staggering
+pairs (z, x):
 
     ex (0,1/2)  ey (0,0)  ez (1/2,0)  bx (1/2,0)  by (1/2,1/2)  bz (0,1/2)
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Callable, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..pic.grid import Grid2D
-from ._tensors import check_binned, plain_box_groups, scalar_tensor
+from ._tensors import SPAN_CHUNKS, check_binned, plain_box_groups, scalar_tensor, span_table
 from .common import HALO, cubic_weights
 from .constants import DEPOSIT_TILE, PUSH_OPS
 
-__all__ = ["gather_push_move", "gather_push_move_plain"]
+__all__ = ["gather_push_move", "gather_push_move_", "gather_push_move_plain", "gather_push_launcher"]
 
 
 def _geometry(grid: Grid2D, tile_shape, dt: float):
@@ -123,6 +127,119 @@ def gather_push_move_plain(
     return (*outs, cnt)
 
 
+def gather_push_launcher(
+    counts: torch.Tensor,
+    arrays: Sequence[torch.Tensor],
+    field_tiles: Sequence[torch.Tensor],
+    *,
+    grid: Grid2D,
+    qm,
+    dt: float,
+    tile: int = DEPOSIT_TILE,
+    tile_shape=None,
+    span_chunks: int = SPAN_CHUNKS,
+) -> Tuple[Callable[[], None], torch.Tensor]:
+    """Check CUDA arguments and prepare the kernel's launch on ``arrays``
+    (sz, sx, ux, uy, uz): returns ``(launch, cnt)``.  Each ``launch()``
+    launches ``csrc/gather_push.cu`` once, pushing the arrays in place and
+    adding the executed work to ``cnt`` (zeros until the first launch).
+    :func:`gather_push_move_` calls it once; apart, it lets a timing cover
+    the launch alone.  ``span_chunks`` is the span size of the work list."""
+    from ._build import load_library, persistent_blocks
+
+    arrays = tuple(arrays)
+    device = arrays[0].device
+    if device.type != "cuda":
+        raise ValueError(f"the gather_push kernel runs on cuda tensors, got {device}")
+    n_boxes, cap = check_binned(counts, arrays, tile)
+    bz, bx, dt, dt_over_dz, dt_over_dx = _geometry(grid, tile_shape, dt)
+    tiles = tuple(field_tiles)
+    if len(tiles) != 6:
+        raise ValueError(f"expected six field tiles, got {len(tiles)}")
+    for t in tiles:
+        if t.shape != (n_boxes, bz, bx) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                f"field tiles must be contiguous float32 {(n_boxes, bz, bx)}, got "
+                f"{tuple(t.shape)} {t.dtype}"
+            )
+        if t.device != device:
+            raise ValueError("field tiles and particles must share a device")
+    counts32 = counts.to(device=device, dtype=torch.int32).contiguous()
+    spans = span_table(counts32, cap, tile, span_chunks)
+    qm_t = scalar_tensor(qm, device)
+    cnt = torch.zeros(n_boxes, dtype=torch.int32, device=device)
+    lib = load_library()
+    blocks = persistent_blocks("gather_push", bz, bx, torch.cuda.current_device())
+    args = (
+        counts32.data_ptr(), spans.data_ptr(), qm_t.data_ptr(),
+        *(a.data_ptr() for a in arrays),
+        *(t.data_ptr() for t in tiles), cnt.data_ptr(),
+        n_boxes, cap, tile, bz, bx, span_chunks, blocks,
+        float(np.float32(0.5 * dt)), dt_over_dz, dt_over_dx,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+
+    def launch() -> None:
+        err = lib.gather_push_launch(*args)
+        if err != 0:
+            raise RuntimeError(f"gather_push kernel launch failed: cudaError {err}")
+        gather_push_move.launches += 1
+
+    launch.tensors = (counts32, spans, qm_t, arrays, tiles)  # alive while args point at them
+    return launch, cnt
+
+
+def gather_push_move_(
+    counts: torch.Tensor,
+    sz: torch.Tensor,
+    sx: torch.Tensor,
+    ux: torch.Tensor,
+    uy: torch.Tensor,
+    uz: torch.Tensor,
+    field_tiles: Sequence[torch.Tensor],
+    *,
+    grid: Grid2D,
+    qm,
+    dt: float,
+    tile: int = DEPOSIT_TILE,
+    tile_shape=None,
+) -> torch.Tensor:
+    """Push the binned ``(sz, sx, ux, uy, uz)`` in place and return the
+    per-box int32 counters.
+
+    Inputs are the binned layout: ``counts`` (B,) alive particles per box,
+    particle arrays (B, cap) in local cell units with the halo as origin,
+    and six (B, BZ, BX) field tiles (ex, ey, ez, bx, by, bz).  ``qm`` is the
+    species' charge/mass ratio, a device tensor on the hot path (never
+    fetched to the host).  ``tile_shape`` overrides (BZ, BX).
+
+    In place, unlike the JAX function, to save memory: the arrays end up
+    holding what the JAX function returns, and the lanes of chunks that do
+    not run are never touched, so the kernel moves only the executed lanes'
+    bytes.  CUDA tensors launch ``csrc/gather_push.cu``: persistent blocks
+    walk the span work list (:func:`._tensors.span_table`), loading a box's
+    six tiles into shared memory when their box changes.  CPU tensors run
+    :func:`gather_push_move_plain` and copy its result into the arrays.
+    """
+    arrays = (sz, sx, ux, uy, uz)
+    device = sz.device
+    if device.type == "cpu":
+        *outs, cnt = gather_push_move_plain(
+            counts, *arrays, field_tiles,
+            grid=grid, qm=qm, dt=dt, tile=tile, tile_shape=tile_shape,
+        )
+        for a, out in zip(arrays, outs):
+            a.copy_(out)
+        return cnt
+    if device.type != "cuda":
+        raise ValueError(f"gather_push_move_ runs on cuda or cpu tensors, got {device}")
+    launch, cnt = gather_push_launcher(
+        counts, arrays, field_tiles, grid=grid, qm=qm, dt=dt, tile=tile, tile_shape=tile_shape
+    )
+    launch()
+    return cnt
+
+
 def gather_push_move(
     counts: torch.Tensor,
     sz: torch.Tensor,
@@ -138,58 +255,15 @@ def gather_push_move(
     tile: int = DEPOSIT_TILE,
     tile_shape=None,
 ) -> Tuple[torch.Tensor, ...]:
-    """Updated binned ``(sz, sx, ux, uy, uz)`` and per-box int32 counters.
-
-    Inputs are the binned layout: ``counts`` (B,) alive particles per box,
-    particle arrays (B, cap) in local cell units with the halo as origin,
-    and six (B, BZ, BX) field tiles (ex, ey, ez, bx, by, bz).  ``qm`` is the
-    species' charge/mass ratio, a device tensor on the hot path (never
-    fetched to the host).  ``tile_shape`` overrides (BZ, BX).
-
-    CUDA tensors launch the kernel; CPU tensors run the plain version.
-    """
-    device = sz.device
-    if device.type == "cpu":
-        return gather_push_move_plain(
-            counts, sz, sx, ux, uy, uz, field_tiles,
-            grid=grid, qm=qm, dt=dt, tile=tile, tile_shape=tile_shape,
-        )
-    if device.type != "cuda":
-        raise ValueError(f"gather_push_move runs on cuda or cpu tensors, got {device}")
-    from ._build import load_library
-
-    n_boxes, cap = check_binned(counts, (sz, sx, ux, uy, uz), tile)
-    bz, bx, dt, dt_over_dz, dt_over_dx = _geometry(grid, tile_shape, dt)
-    tiles = tuple(field_tiles)
-    if len(tiles) != 6:
-        raise ValueError(f"expected six field tiles, got {len(tiles)}")
-    for t in tiles:
-        if t.shape != (n_boxes, bz, bx) or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(
-                f"field tiles must be contiguous float32 {(n_boxes, bz, bx)}, got "
-                f"{tuple(t.shape)} {t.dtype}"
-            )
-        if t.device != device:
-            raise ValueError("field tiles and particles must share a device")
-    counts32 = counts.to(device=device, dtype=torch.int32).contiguous()
-    qm_t = scalar_tensor(qm, device)
-    outs = [torch.empty_like(a) for a in (sz, sx, ux, uy, uz)]
-    cnt = torch.empty(n_boxes, dtype=torch.int32, device=device)
-    lib = load_library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.gather_push_launch(
-        counts32.data_ptr(), qm_t.data_ptr(),
-        *(a.data_ptr() for a in (sz, sx, ux, uy, uz)),
-        *(t.data_ptr() for t in tiles),
-        *(o.data_ptr() for o in outs), cnt.data_ptr(),
-        n_boxes, cap, tile, bz, bx,
-        float(np.float32(0.5 * dt)), dt_over_dz, dt_over_dx, stream,
+    """Updated binned ``(sz, sx, ux, uy, uz)`` and per-box int32 counters,
+    the JAX function's form: :func:`gather_push_move_` on copies."""
+    outs = [a.clone() for a in (sz, sx, ux, uy, uz)]
+    cnt = gather_push_move_(
+        counts, *outs, field_tiles, grid=grid, qm=qm, dt=dt, tile=tile, tile_shape=tile_shape
     )
-    if err != 0:
-        raise RuntimeError(f"gather_push kernel launch failed: cudaError {err}")
-    gather_push_move.launches += 1
     return (*outs, cnt)
 
 
-#: launches of the CUDA kernel in this process (the plain version does not count)
+#: launches of the CUDA kernel in this process by either form (the plain
+#: version does not count)
 gather_push_move.launches = 0

@@ -5,7 +5,8 @@ Counterpart of ``repro.kernels.ops``:
   1. bin particles by box into (n_boxes, cap) arrays, with an overflow
      count (:func:`bin_particles`),
   2. extract per-box field tiles with a periodic halo (:func:`field_tiles`),
-  3. run the fused gather + push + move kernel,
+  3. run the fused gather + push + move kernel on the binned arrays, in
+     place,
   4. run the deposition kernel at the moved positions (the 3-cell halo
      catches deposits of particles up to one cell outside their box),
   5. scatter-add the tiles onto the global J grids (:func:`assemble_grid`)
@@ -31,7 +32,7 @@ from ..pic.particles import Particles
 from .common import HALO
 from .constants import DEPOSIT_TILE
 from .deposition import deposit_local_tiles
-from .gather_push import gather_push_move
+from .gather_push import gather_push_move_
 
 __all__ = [
     "bin_particles",
@@ -171,14 +172,16 @@ def pic_substep_body(
 
     Returns ``(new_particles, (jx, jy, jz), work_counters, counts,
     n_dropped)``: gather(E^n, B^n) → Boris → move → direct order-3
-    deposition at the new positions.  The binned arrays are released as
-    soon as they are consumed (about 1 GB each at the full-size run).
+    deposition at the new positions.  The push updates the binned arrays in
+    place, and they are released as soon as they are consumed (about 2 GB
+    each at the full-size run).
     """
     b = bin_particles(p, grid, cap)
     tiles = field_tiles(f, grid)
     qm = p.q / p.m
-    sz, sx, ux, uy, uz, cnt_push = gather_push_move(
-        b.counts, b.sz, b.sx, b.ux, b.uy, b.uz, tiles, grid=grid, qm=qm, dt=dt, tile=tile
+    sz, sx, ux, uy, uz = b.sz, b.sx, b.ux, b.uy, b.uz
+    cnt_push = gather_push_move_(
+        b.counts, sz, sx, ux, uy, uz, tiles, grid=grid, qm=qm, dt=dt, tile=tile
     )
     del tiles
     w = b.w

@@ -22,8 +22,12 @@ from repro.pic.grid import Grid2D as JGrid
 
 from repro_torch import convert
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels._tensors import span_table
 from repro_torch.kernels.deposition import deposit_local_tiles as t_deposit
+from repro_torch.kernels.deposition import deposition_launcher
 from repro_torch.kernels.gather_push import gather_push_move as t_gather_push
+from repro_torch.kernels.gather_push import gather_push_launcher
+from repro_torch.kernels.gather_push import gather_push_move_ as t_gather_push_
 from repro_torch.pic.deposition import box_work_counters
 from repro_torch.pic.grid import Grid2D as TGrid
 
@@ -95,6 +99,105 @@ def test_gather_push_plain_matches_pallas(counts, spread):
     skipped = np.arange(CAP)[None, :] >= ((counts[:, None] + 255) // 256) * 256
     np.testing.assert_array_equal(got[0].numpy()[skipped], sz[skipped])
     np.testing.assert_array_equal(got[5].numpy(), np.asarray(ref[5]))
+
+
+@pytest.mark.parametrize("counts,spread", ADVERSARIAL)
+def test_gather_push_in_place_matches_functional_and_pallas(counts, spread):
+    """``gather_push_move_`` updates its five arrays to what the JAX
+    function returns, equals the functional form bitwise, returns only the
+    counters, and leaves every lane past the last executed chunk as it was."""
+    jg, tg = _grids()
+    counts, sz, sx, vel, tiles = _binned(counts, spread, seed=3)
+    dt = float(jg.dt)
+    ref = j_gather_push(
+        jnp.asarray(counts), jnp.asarray(sz), jnp.asarray(sx), *map(jnp.asarray, vel),
+        tuple(jnp.asarray(t) for t in tiles), grid=jg, qm=-1.0, dt=dt, interpret=True,
+    )
+    kw = dict(grid=tg, qm=torch.tensor(-1.0), dt=dt)
+    functional = t_gather_push(
+        _to_t(counts), _to_t(sz), _to_t(sx), *map(_to_t, vel), tuple(map(_to_t, tiles)), **kw
+    )
+    before = [sz, sx, *vel]
+    arrays = [_to_t(a).clone() for a in before]
+    cnt = t_gather_push_(_to_t(counts), *arrays, tuple(map(_to_t, tiles)), **kw)
+    assert cnt.shape == (len(counts),) and cnt.dtype == torch.int32
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(ref[5]))
+    skipped = np.arange(CAP)[None, :] >= ((counts[:, None] + 255) // 256) * 256
+    for a, f, r, old in zip(arrays, functional[:5], ref[:5], before):
+        assert torch.equal(a.view(torch.int32), f.view(torch.int32))
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=2e-5, atol=1e-6)
+        np.testing.assert_array_equal(
+            a.numpy().view(np.int32)[skipped], old.view(np.int32)[skipped]
+        )
+    if counts.any():  # the executed lanes moved: the inputs were updated
+        assert not np.array_equal(arrays[0].numpy(), sz)
+
+
+def _span_mirror(counts, cap, tile, g):
+    """numpy mirror of the span table and of the kernels' walk over it
+    (csrc/common.cuh: span_at, block_spans); the CUDA walk itself runs
+    only on the card, where chip_smoke.py launches both kernels with spans
+    of 1, 8 and cap/tile chunks."""
+    chunks = np.minimum(np.maximum((counts.astype(np.int64) + tile - 1) // tile, 0), cap // tile)
+    table = np.concatenate([[0], np.cumsum((chunks + g - 1) // g)]).astype(np.int32)
+
+    def span_at(s, hint):
+        lo = hint
+        if hint < 0 or table[hint] > s or table[hint + 1] <= s:
+            lo, hi = 0, len(counts)
+            while hi - lo > 1:
+                mid = (lo + hi) >> 1
+                lo, hi = (mid, hi) if table[mid] <= s else (lo, mid)
+        c0 = (s - table[lo]) * g
+        return lo, c0, min(c0 + g, chunks[lo])
+
+    return chunks, table, span_at
+
+
+_SPAN_CAP = 64 * 256
+SPAN_CASES = [pytest.param(p.values[0], CAP, id=p.id) for p in ADVERSARIAL] + [
+    pytest.param([8 * 256 - 1, 8 * 256, 8 * 256 + 1, _SPAN_CAP], _SPAN_CAP, id="span-boundaries"),
+    pytest.param([0, 0, 0, 0, 0, 5000], _SPAN_CAP, id="last-box-only"),
+    pytest.param([3000, 0, _SPAN_CAP, 0, 1, 0, 9000], _SPAN_CAP, id="alternate-empty"),
+]
+
+
+@pytest.mark.parametrize("group", [1, 8, "cap/tile"])
+@pytest.mark.parametrize("counts,cap", SPAN_CASES)
+def test_span_table_covers_every_executed_chunk_once(counts, cap, group):
+    tile = 256
+    g = cap // tile if group == "cap/tile" else group
+    counts = np.asarray(counts, np.int32)
+    chunks, table, span_at = _span_mirror(counts, cap, tile, g)
+    got = span_table(torch.from_numpy(counts), cap, tile, span_chunks=g)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), table)
+    executed = np.arange(cap // tile)[None, :] < chunks[:, None]
+    for n_blocks in (1, 3, 264):
+        covered = np.zeros(executed.shape, np.int64)
+        total = int(table[-1])
+        for blk in range(n_blocks):
+            first, last = total * blk // n_blocks, total * (blk + 1) // n_blocks
+            box = -1
+            for s in range(first, last):
+                box, c0, c1 = span_at(s, box)
+                assert 0 < c1 - c0 <= g
+                covered[box, c0:c1] += 1
+        np.testing.assert_array_equal(covered, executed.astype(np.int64))
+
+
+def test_launchers_refuse_cpu_tensors():
+    """The launchers prepare only a CUDA launch: on CPU tensors they raise
+    instead of running anything (the public wrappers run the plain versions)."""
+    _, tg = _grids()
+    counts, sz, sx, vel, tiles = _binned([3, 0, 0, 0], "interior")
+    arrays = [_to_t(a) for a in (sz, sx, *vel)]
+    with pytest.raises(ValueError, match="cuda"):
+        gather_push_launcher(
+            _to_t(counts), arrays, tuple(map(_to_t, tiles)), grid=tg, qm=-1.0, dt=float(tg.dt)
+        )
+    with pytest.raises(ValueError, match="cuda"):
+        deposition_launcher(_to_t(counts), *arrays, grid=tg)
 
 
 @pytest.mark.parametrize("counts,spread", ADVERSARIAL)
