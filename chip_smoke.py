@@ -33,7 +33,29 @@ Phases (any failure exits non-zero before the result line):
      interval under ``torch.profiler`` prints where the step's time goes,
      with each kernel's device time per launch;
   4. backends: ``engine_backend="cuda"`` against ``"torch"`` at 256² for 10
-     steps: energies within rtol 1e-3, the same particle census and LB steps.
+     steps: energies within rtol 1e-3, the same particle census and LB steps;
+  5. sharded: the sharded runtime (``repro_torch.dist.ShardedRuntime``) with
+     both kernels through ``particle_phase_slots``:
+     a. the kernels against their plain versions at the slot path's shapes
+        (the 1920² problem packed into 900 slots of 72x72 tiles) and on the
+        reference's five slot geometries at 64² boxes: counters bitwise and
+        equal to ``box_work_counters``, J within 2e-5·max|J|, pushed state
+        within rtol 2e-5 / atol 1e-6; each launch alone timed beside its
+        bound, and the persistent grid at 72² printed;
+     b. 20 steps of the 1920² problem on one logical device under
+        sync-debug "error": one fetch per interval, each kernel launched
+        steps x species x devices times, no drops, the alive-prefix
+        invariant on the final state; ms/step, pushes/s, peak memory,
+        ``comm_stats()``, ``migration_stats()`` and the LB events printed;
+     c. the same problem on four logical devices of the one card, 10 steps,
+        a forced adoption swapping 16 boxes between devices 0 and 1 (which
+        must change ``comm_stats()``), 10 more steps: the same checks, and
+        energies within rtol 1e-3 of run b step by step, the same census;
+     d. at 256² (10 steps, no adoption on its own): sharded ``cuda`` vs
+        ``torch`` on four devices, sharded ``torch`` vs the global
+        ``Simulation``, ``comm="ring"`` vs ``"neighbor"``: energies within
+        rtol 1e-3 and the same census;
+     e. one profiled interval of run b.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -42,6 +64,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -438,6 +461,14 @@ def profile_interval(sim, top: int = 12) -> None:
             log(f"profile: {name[:40]} {ms / count:.3f} ms of device time per launch ({count} launches)")
     kernels_ms = sum(ms for ms, _, name in rows if any(k in name for k in ours))
     log(f"profile: the two PIC kernels {kernels_ms / 10:.3f} ms/step of device time")
+    # the host's side: CUDA runtime calls by their own host time
+    calls = sorted(
+        ((ev.self_cpu_time_total / 1e3, ev.count, ev.key) for ev in prof.key_averages()
+         if ev.device_type == torch.autograd.DeviceType.CPU and ev.key.startswith("cuda")),
+        reverse=True,
+    )
+    for ms, count, name in calls[:5]:
+        log(f"profile: host {ms / 10:8.3f} ms/step in {count // 10} calls/step of {name}")
 
 
 def backends_phase() -> None:
@@ -467,6 +498,371 @@ def backends_phase() -> None:
         f"{max(abs(x / y - 1) for x, y in zip(a.history['field_energy'], b.history['field_energy']) if y):.3g}, "
         f"per-box count differences per step {shifted.tolist()}"
     )
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the sharded runtime
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside: ``particle_phase_slots`` runs the kernels' plain PyTorch
+    versions on the same (CUDA) tensors, for the comparisons."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.deposition import deposit_local_tiles_plain
+    from repro_torch.kernels.gather_push import gather_push_move_plain
+
+    def push_(counts, *arrays_and_tiles, **kw):
+        *arrays, tiles = arrays_and_tiles
+        *outs, cnt = gather_push_move_plain(counts, *arrays, tiles, **kw)
+        for a, out in zip(arrays, outs):
+            a.copy_(out)
+        return cnt
+
+    saved = (ops.gather_push_move_, ops.deposit_local_tiles)
+    ops.gather_push_move_, ops.deposit_local_tiles = push_, deposit_local_tiles_plain
+    try:
+        yield
+    finally:
+        ops.gather_push_move_, ops.deposit_local_tiles = saved
+
+
+def slot_case(case: str, grid, local, cap: int, gen, device):
+    """The five slot geometries of the reference's kernel-backend tests
+    (``tests/test_kernel_backends.py``), at 64² boxes: ``(tiles6, p,
+    origins, counts)`` on ``device``."""
+    import torch
+
+    from repro_torch.pic.particles import Particles
+
+    counts = {
+        "all-empty": [0, 0, 0, 0],
+        "all-in-one-box": [cap, 0, 0, 0],
+        "at-capacity": [cap] * 4,
+        "tile-boundaries": [1, 255, 256, 257],
+        "box-edge-seam": [137, 256, 0, 490],
+    }[case]
+    S = grid.n_boxes
+    coords = torch.as_tensor(grid.box_coords, device=device).float()
+    lz_b, lx_b = grid.box_nz * grid.dz, grid.box_nx * grid.dx
+    z0 = (coords[:, 0] * lz_b)[:, None]
+    x0 = (coords[:, 1] * lx_b)[:, None]
+    shape = (S, cap)
+    if case == "box-edge-seam":
+        edge = torch.rand(shape, generator=gen, device=device) * grid.dz
+        side = torch.randint(0, 4, shape, generator=gen, device=device)
+        along_z = z0 + torch.rand(shape, generator=gen, device=device) * lz_b
+        along_x = x0 + torch.rand(shape, generator=gen, device=device) * lx_b
+        z = torch.where(side == 0, z0 + edge, torch.where(side == 1, z0 + lz_b - edge, along_z))
+        x = torch.where(side == 2, x0 + edge, torch.where(side == 3, x0 + lx_b - edge, along_x))
+    else:
+        z = z0 + (0.05 + 0.9 * torch.rand(shape, generator=gen, device=device)) * lz_b
+        x = x0 + (0.05 + 0.9 * torch.rand(shape, generator=gen, device=device)) * lx_b
+    z = torch.minimum(torch.maximum(z, z0), torch.nextafter(z0 + lz_b, z0))
+    x = torch.minimum(torch.maximum(x, x0), torch.nextafter(x0 + lx_b, x0))
+    counts_t = torch.tensor(counts, device=device)
+    alive = torch.arange(cap, device=device)[None, :] < counts_t[:, None]
+    u = torch.randn((3,) + shape, generator=gen, device=device) * 0.1
+    p = Particles(
+        z=z.contiguous(), x=x.contiguous(), ux=u[0].contiguous(), uy=u[1].contiguous(),
+        uz=u[2].contiguous(),
+        w=0.5 + torch.rand(shape, generator=gen, device=device),
+        alive=alive,
+        q=torch.full((), -1.0, device=device), m=torch.full((), 1.0, device=device),
+    )
+    halo = (local.nz - grid.box_nz) // 2
+    origins = torch.stack(
+        [(coords[:, 0] * grid.box_nz - halo) * grid.dz, (coords[:, 1] * grid.box_nx - halo) * grid.dx], 1
+    )
+    tiles6 = torch.randn((S, 6, local.nz, local.nx), generator=gen, device=device) * 0.01
+    return tiles6, p, origins, counts_t
+
+
+def check_slots(label: str, tiles6, species, origins, local, grid, errs: dict) -> None:
+    """``particle_phase_slots`` with the kernels against itself with their
+    plain versions: counters bitwise (and, for one species, bitwise equal to
+    ``box_work_counters`` of the alive counts), J within 2e-5·max|J|,
+    pushed state within rtol 2e-5 / atol 1e-6, the same alive lanes."""
+    import torch
+
+    from repro_torch.kernels.ops import particle_phase_slots
+    from repro_torch.pic.deposition import box_work_counters
+
+    k_sp, k_j, k_c, k_w = particle_phase_slots(tiles6, species, origins, local, domain_grid=grid)
+    with plain_kernels():
+        p_sp, p_j, p_c, p_w = particle_phase_slots(tiles6, species, origins, local, domain_grid=grid)
+    torch.cuda.synchronize()
+    if not torch.equal(k_w, p_w):
+        raise AssertionError(f"sharded: slot counters differ from the plain versions' ({label})")
+    if len(species) == 1:
+        formula = box_work_counters(species[0].alive.sum(1), grid)
+        if not torch.equal(k_w, formula):
+            raise AssertionError(f"sharded: slot counters differ from box_work_counters ({label})")
+    if not torch.equal(k_c, p_c):
+        raise AssertionError(f"sharded: slot alive counts differ ({label})")
+    scale = max(float(p_j.abs().max()), 1e-30)
+    err = float((k_j - p_j).abs().max())
+    if err > 2e-5 * scale:
+        raise AssertionError(f"sharded: slot J differs ({label}): {err} > 2e-5*{scale}")
+    errs["deposition"] = max(errs["deposition"], err)
+    for k, p in zip(k_sp, p_sp):
+        if not torch.equal(k.alive, p.alive):
+            raise AssertionError(f"sharded: alive lanes differ ({label})")
+        for name in ("z", "x", "ux", "uy", "uz"):
+            a, b = getattr(k, name), getattr(p, name)
+            if bool(((a - b).abs() > 1e-6 + 2e-5 * b.abs()).any()):
+                raise AssertionError(f"sharded: pushed {name} differs ({label})")
+            errs["gather_push"] = max(errs["gather_push"], float((a - b).abs().max()))
+
+
+def slot_kernel_phase(rt, record: dict) -> None:
+    """Phase 5a: both kernels through ``particle_phase_slots`` at the full
+    width's slot shapes and on the five reference geometries; each kernel's
+    launch alone at the slot shapes beside its bound."""
+    import torch
+
+    from repro_torch.kernels._build import persistent_blocks
+    from repro_torch.kernels.deposition import deposition_launcher
+    from repro_torch.kernels.gather_push import gather_push_launcher
+    from repro_torch.pic.grid import Grid2D
+    from repro_torch.pic.particles import Particles
+
+    local, grid = rt.local_grid, rt.grid
+    bz, bx = local.nz, local.nx
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for kernel, n_tiles in (("gather_push", 6), ("deposition", 3)):
+        blocks = persistent_blocks(kernel, bz, bx, torch.cuda.current_device())
+        log(
+            f"sharded: {kernel} persistent grid at {bz}x{bx} tiles: {blocks} blocks "
+            f"({blocks / sms:g} per SM), {n_tiles * bz * bx * 4} B of shared memory per block"
+        )
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20210424)
+    errs = {"gather_push": 0.0, "deposition": 0.0}
+    sp = rt._species[0][0]
+    e = Particles(**sp, q=rt._dev[0]["q"][0], m=rt._dev[0]["m"][0])
+    S, cap = e.z.shape
+    tiles6 = torch.randn((S, 6, bz, bx), generator=gen, device="cuda") * 0.5
+    origins = rt._dev[0]["origins"]
+    check_slots("full width, electrons", tiles6, (e,), origins, local, grid, errs)
+    log(f"sharded: kernels at the slot shapes ({S} slots, cap {cap}, {bz}x{bx} tiles) match their plain versions")
+
+    # each launch alone, on the inputs particle_phase_slots gives the kernels
+    counts = e.alive.sum(1).to(torch.int32)
+    sz = ((e.z - origins[:, 0:1]) / local.dz).contiguous()
+    sx = ((e.x - origins[:, 1:2]) / local.dx).contiguous()
+    arrays = [sz, sx, e.ux.clone(), e.uy.clone(), e.uz.clone()]
+    tiles = tuple(tiles6[:, i].contiguous() for i in range(6))
+    kw = dict(grid=local, qm=e.q / e.m, dt=float(local.dt), tile_shape=(bz, bx))
+    launch, _ = gather_push_launcher(counts, arrays, tiles, **kw)
+    gp_ms = cuda_time_ms(launch)
+    v = [(u * 0.01).contiguous() for u in arrays[2:]]
+    launch, _ = deposition_launcher(
+        counts, sz, sx, *v, grid=local, tile_shape=(bz, bx), cells_per_box=grid.cells_per_box
+    )
+    dp_ms = cuda_time_ms(launch)
+    exec_lanes = int((((counts.long() + 255) // 256) * 256).sum())
+    occupied = int((counts > 0).sum())
+    gp_bound = bound_ms(
+        40 * exec_lanes + 24 * bz * bx * occupied + 2 * S * 4,
+        exec_lanes * GATHER_PUSH_FLOPS_PER_LANE,
+    )
+    dp_bound = bound_ms(
+        5 * exec_lanes * 4 + 3 * S * bz * bx * 4 + 2 * S * 4,
+        exec_lanes * DEPOSITION_FLOPS_PER_LANE,
+    )
+    log(
+        f"sharded: slot shapes, {exec_lanes} executed lanes in {occupied} occupied slots: "
+        f"gather_push_move_ {gp_ms:.3f} ms (bound {gp_bound[0]:.4f} by {gp_bound[1]}), "
+        f"deposition {dp_ms:.3f} ms (bound {dp_bound[0]:.4f} by {dp_bound[1]})"
+    )
+    del arrays, tiles, v, sz, sx, launch, tiles6, e
+
+    # the reference's five slot geometries, scaled to 64² boxes
+    g4 = Grid2D(nz=2 * grid.box_nz, nx=2 * grid.box_nx, dz=grid.dz, dx=grid.dx,
+                box_nz=grid.box_nz, box_nx=grid.box_nx)
+    for case in ("all-empty", "all-in-one-box", "at-capacity", "tile-boundaries", "box-edge-seam"):
+        t6, p, o, c = slot_case(case, g4, local, 512, gen, "cuda")
+        check_slots(case, t6, (p,), o, local, g4, errs)
+        log(f"sharded: slot case {case:16s} ok  (counts {c.tolist()})")
+    record["gather_push"]["max_abs_err"] = max(record["gather_push"]["max_abs_err"], errs["gather_push"])
+    record["deposition"]["max_abs_err"] = max(record["deposition"]["max_abs_err"], errs["deposition"])
+    torch.cuda.empty_cache()
+
+
+def alive_prefix_ok(rt) -> bool:
+    """Every slot's alive particles sit in its leading lanes."""
+    import torch
+
+    for per_device in rt._species:
+        for sp in per_device:
+            alive = sp["alive"]
+            lane = torch.arange(alive.shape[1], device=alive.device)[None, :]
+            if not bool((alive == (lane < alive.sum(1, keepdim=True))).all()):
+                return False
+    return True
+
+
+def sharded_run(rt, n_steps: int, label: str, record: dict):
+    """Drive ``rt`` ``n_steps`` steps with the launch counts zeroed just
+    before; check the launches, drops, fetches and alive-prefix invariant;
+    returns ms per step of each interval."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.deposition import deposit_local_tiles
+    from repro_torch.kernels.gather_push import gather_push_move
+
+    n_sp = len(rt._qm)
+    syncs0 = rt.host_syncs
+    gather_push_move.launches = 0
+    deposit_local_tiles.launches = 0
+    ms = []
+    for _ in range(n_steps // rt.lb_interval):
+        torch.cuda.synchronize()
+        host0 = rt.pipeline_stats()
+        t0 = time.perf_counter()
+        rt.run(rt.lb_interval)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / rt.lb_interval)
+        host = {k: (rt.pipeline_stats()[k] - host0[k]) * 1e3 / rt.lb_interval
+                for k in ("dispatch_s", "fetch_s", "balance_s")}
+        peaks = rt.last_history["emig_demand"].max(axis=(0, 2)).tolist()
+        log(
+            f"sharded: {label} interval: {ms[-1]:.2f} ms/step (host: issuing {host['dispatch_s']:.2f}, "
+            f"waiting for the fetch {host['fetch_s']:.2f}, LB turnaround {host['balance_s']:.2f} ms/step), "
+            f"emig_demand peaks per species {peaks}"
+        )
+    want = n_steps * n_sp * rt.n_devices
+    for fn in (gather_push_move, deposit_local_tiles):
+        if fn.launches != want:
+            raise AssertionError(f"sharded: {label}: {fn.__name__} launched {fn.launches} times, want {want}")
+    record["gather_push"]["launches"] += gather_push_move.launches
+    record["deposition"]["launches"] += deposit_local_tiles.launches
+    if rt.host_syncs - syncs0 != n_steps // rt.lb_interval:
+        raise AssertionError(f"sharded: {label}: {rt.host_syncs - syncs0} fetches for {n_steps} steps")
+    if rt.dropped_total != 0:
+        raise AssertionError(f"sharded: {label}: dropped_total {rt.dropped_total}")
+    if not alive_prefix_ok(rt):
+        raise AssertionError(f"sharded: {label}: the alive-prefix invariant is broken")
+    h = rt.history
+    if not (np.isfinite(h["field_energy"]).all() and np.isfinite(h["kinetic_energy"]).all()):
+        raise AssertionError(f"sharded: {label}: non-finite energies")
+    return ms
+
+
+def full_width_problem():
+    from repro_torch.pic import laser_ion_problem
+
+    return laser_ion_problem(nz=1920, nx=1920, box_cells=64, ppc=16, mass_ratio=1836, device="cuda")
+
+
+def sharded_phase(record: dict) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import ShardedRuntime
+
+    kw = dict(engine_backend="cuda", comm="neighbor", lb_interval=10, strict_syncs=True)
+    # b. one logical device at full width (5a uses its packed slot stacks)
+    t0 = time.perf_counter()
+    rt = ShardedRuntime(full_width_problem(), 1, **kw)
+    n_particles = rt.total_alive()
+    log(
+        f"sharded: setup {time.perf_counter() - t0:.1f} s; 1 logical device, {rt.grid.n_boxes} slots, "
+        f"caps {rt._caps}, {n_particles} particles, mig caps {rt.migration_stats()['caps']}"
+    )
+    slot_kernel_phase(rt, record)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = sharded_run(rt, 20, "1 device", record)
+    if rt.host_syncs != 2:
+        raise AssertionError(f"sharded: host_syncs {rt.host_syncs}, want 2")
+    log(
+        f"sharded: 1 device: {ms[1]:.2f} ms/step in interval 1, "
+        f"{n_particles * 1e3 / ms[1]:.4g} particle pushes/s, census {rt.total_alive()}, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+    )
+    log(f"sharded: 1 device comm_stats {rt.comm_stats()}")
+    log(f"sharded: 1 device migration_stats {rt.migration_stats()}")
+    log(f"sharded: 1 device LB events {[(e.step, e.adopted) for e in rt.balancer.events]}")
+    energies_b = {k: list(rt.history[k]) for k in ("field_energy", "kinetic_energy")}
+    census_b = rt.total_alive()
+    # e. one profiled interval of run b
+    profile_interval(rt)
+    del rt
+    torch.cuda.empty_cache()
+
+    # c. four logical devices on one card, a forced adoption half way
+    rt = ShardedRuntime(full_width_problem(), 4, **kw)
+    ms4 = sharded_run(rt, 10, "4 devices", record)
+    before = rt.comm_stats()
+    mapping = np.asarray(rt.balancer.mapping).copy()
+    curve = rt._curve
+    # the 8 boxes deepest inside device 0's and device 1's curve blocks
+    swap = []
+    for d in (0, 1):
+        boxes = np.where(mapping == d)[0]
+        boxes = boxes[np.argsort(curve[boxes])]
+        mid = len(boxes) // 2
+        swap.append(boxes[mid - 4 : mid + 4])
+    mapping[swap[0]], mapping[swap[1]] = 1, 0
+    rt.apply_mapping(mapping)
+    after = rt.comm_stats()
+    if after == before:
+        raise AssertionError("sharded: the forced adoption left comm_stats unchanged")
+    ms4 += sharded_run(rt, 10, "4 devices, after the adoption", record)
+    for k, ref in energies_b.items():
+        np.testing.assert_allclose(rt.history[k], ref, rtol=1e-3, err_msg=f"4 vs 1 device {k}")
+    if rt.total_alive() != census_b:
+        raise AssertionError(f"sharded: census {rt.total_alive()} on 4 devices, {census_b} on 1")
+    log(
+        f"sharded: 4 devices: {ms4} ms/step per interval, census {rt.total_alive()} (1 device: {census_b}), "
+        f"hop_radius {rt.hop_radius()}, lb_steps {rt.history['lb_steps']}"
+    )
+    log(f"sharded: 4 devices comm_stats before the adoption {before}")
+    log(f"sharded: 4 devices comm_stats after the adoption {after}")
+    log(f"sharded: 4 devices migration_stats {rt.migration_stats()}")
+    log("sharded: profile of one more interval on 4 devices:")
+    profile_interval(rt)
+    del rt
+    torch.cuda.empty_cache()
+    cross_checks()
+
+
+def cross_checks() -> None:
+    """Phase 5d at 256²: cuda vs torch, torch vs the global solver, ring vs
+    neighbour; energies within rtol 1e-3 and the same census."""
+    import numpy as np
+
+    from repro_torch.dist import ShardedRuntime
+    from repro_torch.pic import SimConfig, Simulation, laser_ion_problem
+
+    def problem():
+        return laser_ion_problem(nz=256, nx=256, box_cells=32, ppc=16, device="cuda")
+
+    def sharded(**kw):
+        rt = ShardedRuntime(problem(), 4, lb_interval=10, improvement_threshold=10.0,
+                            strict_syncs=True, **kw)
+        rt.run(10)
+        return rt.history, rt.total_alive()
+
+    sim = Simulation(problem(), SimConfig(engine_backend="torch", strict_syncs=True))
+    sim.run(10)
+    runs = {
+        "cuda": sharded(engine_backend="cuda"),
+        "torch": sharded(engine_backend="torch"),
+        "ring": sharded(engine_backend="cuda", comm="ring"),
+        "global": (sim.history, sum(int(p.alive.sum()) for p in sim.species)),
+    }
+    for a, b in (("cuda", "torch"), ("torch", "global"), ("ring", "cuda")):
+        (ha, ca), (hb, cb) = runs[a], runs[b]
+        for k in ("field_energy", "kinetic_energy"):
+            np.testing.assert_allclose(ha[k], hb[k], rtol=1e-3, err_msg=f"{a} vs {b} {k}")
+        if ca != cb:
+            raise AssertionError(f"sharded: census {a} {ca} vs {b} {cb}")
+        rel = max(abs(x / y - 1) for x, y in zip(ha["field_energy"], hb["field_energy"]) if y)
+        log(f"sharded: 256^2 {a} vs {b}: census {ca}, max rel field energy diff {rel:.3g}")
 
 
 def main() -> int:
@@ -550,6 +946,7 @@ def main() -> int:
     del sim
     torch.cuda.empty_cache()
     backends_phase()
+    sharded_phase(record)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

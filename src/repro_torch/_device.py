@@ -6,11 +6,12 @@ without it raises, so a run never quietly measures the CPU.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device"]
+__all__ = ["DEFAULT_DEVICE", "resolve_device", "sync_free_region"]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -25,3 +26,19 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def sync_free_region(enabled: bool) -> Iterator[None]:
+    """Inside, when ``enabled``: any host synchronisation with a CUDA device
+    raises (``torch.cuda.set_sync_debug_mode("error")``).  The interval
+    loops run under it when their ``strict_syncs`` is set."""
+    if not enabled:
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)

@@ -5,11 +5,14 @@ reference's attribute names; ``np.asarray`` is applied to every leaf), so
 this module imports nothing of the reference.  The tests use it to hand a
 reference ``ProblemSetup`` or field state to the port, and
 :func:`particles_to_numpy` / :func:`fields_to_numpy` take the port's
-tensors back to numpy for comparison.
+tensors back to numpy for comparison.  :func:`slots_from` /
+:func:`slots_to_numpy` do the same for slot-major stacks (the sharded
+runtime's state): a stack's rows split into equal blocks, one per logical
+device, and back.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -28,6 +31,8 @@ __all__ = [
     "problem_from",
     "particles_to_numpy",
     "fields_to_numpy",
+    "slots_from",
+    "slots_to_numpy",
 ]
 
 _PARTICLE_LEAVES = ("z", "x", "ux", "uy", "uz", "w", "alive", "q", "m")
@@ -85,3 +90,25 @@ def particles_to_numpy(p: Particles) -> Dict[str, np.ndarray]:
 
 def fields_to_numpy(f: Fields) -> Dict[str, np.ndarray]:
     return {k: getattr(f, k).detach().cpu().numpy() for k in _FIELD_LEAVES}
+
+
+def slots_from(stack: Dict[str, object], devices: Sequence) -> List[Dict[str, torch.Tensor]]:
+    """Split a slot-major stack (leaves with a leading slot axis, e.g. a
+    species' ``(slots, cap)`` arrays) into equal row blocks, block ``d`` on
+    ``devices[d]``."""
+    leaves = {k: np.asarray(v) for k, v in stack.items()}
+    n_slots = next(iter(leaves.values())).shape[0]
+    if n_slots % len(devices):
+        raise ValueError(f"{n_slots} slots do not split evenly over {len(devices)} devices")
+    per = n_slots // len(devices)
+    return [
+        {k: _tensor(v[d * per : (d + 1) * per], dev) for k, v in leaves.items()}
+        for d, dev in enumerate(devices)
+    ]
+
+
+def slots_to_numpy(per_device: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
+    """The slot-major stack of :func:`slots_from`'s per-device blocks, in
+    device order, as numpy arrays."""
+    keys = per_device[0].keys()
+    return {k: np.concatenate([b[k].detach().cpu().numpy() for b in per_device]) for k in keys}

@@ -12,6 +12,9 @@ Counterpart of ``repro.kernels.ops``:
   5. scatter-add the tiles onto the global J grids (:func:`assemble_grid`)
      and un-bin the particles.
 
+:func:`particle_phase_slots` is the sharded runtime's entry: the kernels on
+the slot-major layout, which is already binned, so steps 1 and 5 fall away.
+
 Everything here is sync-free tensor code: no ``.item()``, no boolean-mask
 indexing, no ``nonzero``, and the index tables reach the device once, when
 :func:`device_tables` is first called for a grid (the engine calls it when
@@ -37,6 +40,7 @@ from .gather_push import gather_push_move_
 __all__ = [
     "bin_particles",
     "pic_substep_body",
+    "particle_phase_slots",
     "field_tiles",
     "assemble_grid",
     "device_tables",
@@ -228,3 +232,94 @@ def pic_substep_body(
         alive=p.alive & torch.where(b.valid, inside, p.alive),
     )
     return new_p, (jx, jy, jz), counters, b.counts, b.n_dropped
+
+
+# ---------------------------------------------------------------------------
+# slot-batched entry point (the sharded runtime's kernel backend)
+# ---------------------------------------------------------------------------
+
+
+def particle_phase_slots(
+    tiles6: torch.Tensor,
+    species: Tuple[Particles, ...],
+    origins: torch.Tensor,
+    local_grid: Grid2D,
+    *,
+    domain_grid: Grid2D,
+    tile: int = DEPOSIT_TILE,
+):
+    """The kernels' form of ``pic.engine.particle_phase_stacked``.
+
+    Inputs are the slot-major padded field tiles ``(slots, 6, pnz, pnx)``,
+    species with ``(slots, cap)`` leaves and per-slot tile origins
+    ``(slots, 2)`` (already including the ``-halo`` shift, so ``(z -
+    origin)/dz`` is the padded-tile cell coordinate the kernels take).
+    Nothing is binned: the runtime's merge and packing keep each slot's
+    alive particles in its leading lanes, so the slot-major layout is the
+    binned layout and ``counts = alive.sum(1)``.
+
+    Returns ``(species', j3, counts, work)`` with ``work`` the ``(slots,)``
+    float32 sum of both kernels' in-kernel counters over species: the
+    balancer's in-situ work signal.  For one species it equals
+    ``box_work_counters(counts_pre, domain_grid)`` bitwise.  The push runs
+    on fresh ``sz``/``sx`` and on copies of the momenta, because the kernel
+    pushes the dead lanes of executed chunks too, and those lanes keep
+    their old state.
+    """
+    grid = local_grid
+    pnz, pnx = grid.box_nz, grid.box_nx
+    tile_shape = (pnz, pnx)
+    slots = tiles6.shape[0]
+    dev = tiles6.device
+    field_tiles6 = tuple(tiles6[:, i].contiguous() for i in range(6))
+    oz = origins[:, 0:1]
+    ox = origins[:, 1:2]
+    inv_vol = 1.0 / (domain_grid.dz * domain_grid.dx)
+
+    j3 = torch.zeros((slots, 3, pnz, pnx), dtype=torch.float32, device=dev)
+    counts = torch.zeros(slots, dtype=torch.float32, device=dev)
+    work = torch.zeros(slots, dtype=torch.int32, device=dev)
+    out_species = []
+    for p in species:
+        counts_pre = p.alive.sum(1).to(torch.int32)
+        sz = (p.z - oz) / grid.dz
+        sx = (p.x - ox) / grid.dx
+        ux, uy, uz = p.ux.clone(), p.uy.clone(), p.uz.clone()
+        cnt_push = gather_push_move_(
+            counts_pre, sz, sx, ux, uy, uz, field_tiles6,
+            grid=grid, qm=p.q / p.m, dt=float(grid.dt), tile=tile, tile_shape=tile_shape,
+        )
+        # back to the domain frame; kill leavers (they keep the new state,
+        # as advance_positions does; dead lanes keep their old state)
+        z_new = sz * grid.dz + oz
+        x_new = sx * grid.dx + ox
+        inside = (
+            (z_new >= 0.0) & (z_new < domain_grid.lz)
+            & (x_new >= 0.0) & (x_new < domain_grid.lx)
+        )
+        alive_new = p.alive & inside
+        del inside
+        # direct order-3 deposition at the new positions and momenta
+        gamma = torch.sqrt(1.0 + ux**2 + uy**2 + uz**2)
+        coef = torch.where(alive_new, p.q * p.w * inv_vol, 0.0) / gamma
+        del gamma
+        jx_t, jy_t, jz_t, cnt_dep = deposit_local_tiles(
+            counts_pre, sz, sx, coef * ux, coef * uy, coef * uz,
+            grid=grid, tile=tile, tile_shape=tile_shape,
+            cells_per_box=domain_grid.cells_per_box,
+        )
+        del coef, sz, sx
+        j3 = j3 + torch.stack([jx_t, jy_t, jz_t], dim=1)
+        counts = counts + alive_new.sum(1).to(torch.float32)
+        work = work + cnt_push + cnt_dep
+        out_species.append(
+            p._replace(
+                z=torch.where(p.alive, z_new, p.z),
+                x=torch.where(p.alive, x_new, p.x),
+                ux=torch.where(p.alive, ux, p.ux),
+                uy=torch.where(p.alive, uy, p.uy),
+                uz=torch.where(p.alive, uz, p.uz),
+                alive=alive_new,
+            )
+        )
+    return tuple(out_species), j3, counts, work.to(torch.float32)

@@ -6,8 +6,13 @@ costs once per LB interval, so nothing in the hot loop touches the host
 more often than that.
 
   * :func:`particle_phase` / :func:`field_phase` — the two halves of one
-    step on the global grid (gather + push + move + deposit; Maxwell
-    leapfrog + laser + sponge).
+    step (gather + push + move + deposit; Maxwell leapfrog + laser +
+    sponge).  Both accept a *local* grid plus an ``origin`` /
+    ``domain_grid`` (and a per-tile laser profile), so the same physics runs
+    on a halo-padded box tile as on the global grid.
+  * :func:`particle_phase_stacked` / :func:`field_phase_stacked` — the same
+    two halves over a stack of box slots ``(slots, ...)`` at once, as
+    batched tensor code (no loop over slots): the sharded runtime's step.
   * :func:`build_step_body` — one step as ``(fields, species, t) ->
     (fields, species, StepOutputs)``.  ``engine_backend="cuda"`` routes the
     particle phase through the binned kernels and threads their in-kernel
@@ -36,12 +41,15 @@ from .particles import (
     gather_fields,
     kinetic_energy,
 )
+from .shapes import shape_weights
 
 __all__ = [
     "ENGINE_BACKENDS",
     "StepOutputs",
     "particle_phase",
     "field_phase",
+    "particle_phase_stacked",
+    "field_phase_stacked",
     "build_step_body",
     "make_interval_fn",
 ]
@@ -77,10 +85,22 @@ def particle_phase(
     species: Tuple[Particles, ...],
     grid: Grid2D,
     shape_order: int = 3,
+    *,
+    domain_grid: Optional[Grid2D] = None,
+    origin: Tuple = (0.0, 0.0),
 ):
-    """Gather + Boris push + move + current deposit for all species on the
-    global grid.  Returns ``(species', (jx, jy, jz), counts)`` with
-    ``counts`` the alive particles per box after the move."""
+    """Gather + Boris push + move + current deposit for all species.
+
+    ``grid`` is the grid the fields live on: the global grid, or a
+    halo-padded box tile.  ``origin`` is the physical position of
+    ``grid``'s cell (0, 0) (particles keep domain positions, so migration
+    never rebases them), and ``domain_grid`` bounds the kill at the domain
+    edge (default ``grid``).  Returns ``(species', (jx, jy, jz), counts)``
+    with ``counts`` the alive particles per box of ``grid`` after the move.
+    """
+    dom = grid if domain_grid is None else domain_grid
+    oz, ox = origin
+    shifted = not (isinstance(oz, float) and isinstance(ox, float) and oz == 0.0 and ox == 0.0)
     dev = fields.ex.device
     jx = torch.zeros(grid.shape, dtype=torch.float32, device=dev)
     jy = torch.zeros(grid.shape, dtype=torch.float32, device=dev)
@@ -88,12 +108,15 @@ def particle_phase(
     counts = torch.zeros(grid.n_boxes, dtype=torch.float32, device=dev)
     out_species = []
     for p in species:
-        eb = gather_fields(fields, p.z, p.x, grid, shape_order)
-        p = advance_positions(boris_push(p, eb, grid.dt), grid, grid.dt)
+        z_loc = p.z - oz if shifted else p.z
+        x_loc = p.x - ox if shifted else p.x
+        eb = gather_fields(fields, z_loc, x_loc, grid, shape_order)
+        p = advance_positions(boris_push(p, eb, grid.dt), dom, grid.dt)
         out_species.append(p)
-        jx_, jy_, jz_ = deposit_current(p, grid, shape_order)
+        p_loc = p._replace(z=p.z - oz, x=p.x - ox) if shifted else p
+        jx_, jy_, jz_ = deposit_current(p_loc, grid, shape_order)
         jx, jy, jz = jx + jx_, jy + jy_, jz + jz_
-        counts = counts + box_particle_counts(p, grid)
+        counts = counts + box_particle_counts(p_loc, grid)
     return tuple(out_species), (jx, jy, jz), counts
 
 
@@ -105,16 +128,147 @@ def field_phase(
     sponge: Optional[torch.Tensor] = None,
     laser=None,
     t=None,
+    laser_profile: Optional[torch.Tensor] = None,
 ) -> Fields:
-    """Maxwell leapfrog (B half, E full, B half) + laser injection + sponge."""
+    """Maxwell leapfrog (B half, E full, B half) + laser injection + sponge.
+
+    ``laser_profile`` selects the offset-aware injection (a fixed spatial
+    profile times a time-dependent scalar, ``LaserAntenna.inject_profile``)
+    for tiles whose frame differs from the global grid; without it the
+    antenna injects on its global row."""
     fields = step_b_half(fields, grid)
     fields = step_e(fields, j, grid)
     fields = step_b_half(fields, grid)
     if laser is not None:
-        fields = laser.inject(fields, grid, t)
+        if laser_profile is None:
+            fields = laser.inject(fields, grid, t)
+        else:
+            fields = laser.inject_profile(fields, laser_profile, grid, t)
     if sponge is not None:
         fields = apply_sponge(fields, sponge)
     return fields
+
+
+def _patch_index(iz, ix, npts: int, nz: int, nx: int) -> torch.Tensor:
+    """In-tile flat cell ``row * nx + col`` of each particle's stencil
+    points, periodic within the tile: ``(slots, N, npts, npts)``."""
+    offs = torch.arange(npts, device=iz.device)
+    rows = torch.remainder(iz[..., None] + offs, nz)
+    cols = torch.remainder(ix[..., None] + offs, nx)
+    return rows[..., :, None] * nx + cols[..., None, :]
+
+
+def _gather_stacked(f: Fields, z, x, grid: Grid2D, order: int):
+    """``gather_fields`` over a stack of tiles: ``f`` components
+    ``(slots, nz, nx)``, positions ``(slots, N)`` in the tiles' frame."""
+    iz0, wz0 = shape_weights(z, grid.dz, 0.0, order)
+    izh, wzh = shape_weights(z, grid.dz, 0.5, order)
+    ix0, wx0 = shape_weights(x, grid.dx, 0.0, order)
+    ixh, wxh = shape_weights(x, grid.dx, 0.5, order)
+    npts = order + 1
+    slots = z.shape[0]
+
+    def interp(c, iz, wz, ix, wx):
+        idx = _patch_index(iz, ix, npts, grid.nz, grid.nx)
+        vals = torch.gather(c.reshape(slots, -1), 1, idx.reshape(slots, -1)).view(idx.shape)
+        return torch.einsum("spij,spi,spj->sp", vals, wz, wx)
+
+    return (
+        interp(f.ex, iz0, wz0, ixh, wxh),
+        interp(f.ey, iz0, wz0, ix0, wx0),
+        interp(f.ez, izh, wzh, ix0, wx0),
+        interp(f.bx, izh, wzh, ix0, wx0),
+        interp(f.by, izh, wzh, ixh, wxh),
+        interp(f.bz, iz0, wz0, ixh, wxh),
+    )
+
+
+def _deposit_stacked(p: Particles, grid: Grid2D, order: int) -> torch.Tensor:
+    """``deposit_current`` over a stack of tiles in one flat ``index_add_``:
+    ``p`` leaves ``(slots, N)`` in the tiles' frame, returns ``(slots, 3,
+    nz, nx)``."""
+    gamma = p.gamma()
+    inv_vol = 1.0 / (grid.dz * grid.dx)
+    qw = p.q * p.w * inv_vol
+    coef = torch.where(p.alive, qw, torch.zeros_like(qw)) / gamma
+    iz0, wz0 = shape_weights(p.z, grid.dz, 0.0, order)
+    izh, wzh = shape_weights(p.z, grid.dz, 0.5, order)
+    ix0, wx0 = shape_weights(p.x, grid.dx, 0.0, order)
+    ixh, wxh = shape_weights(p.x, grid.dx, 0.5, order)
+    slots, npts, cells = p.z.shape[0], order + 1, grid.nz * grid.nx
+    slot_base = (torch.arange(slots, device=p.z.device) * (3 * cells))[:, None, None, None]
+    idx, vals = [], []
+    for c, (iz, wz, ix, wx, u) in enumerate(
+        ((iz0, wz0, ixh, wxh, p.ux), (iz0, wz0, ix0, wx0, p.uy), (izh, wzh, ix0, wx0, p.uz))
+    ):
+        val = coef * u
+        vals.append(val[..., None, None] * wz[..., :, None] * wx[..., None, :])
+        idx.append(slot_base + c * cells + _patch_index(iz, ix, npts, grid.nz, grid.nx))
+    out = torch.zeros(slots * 3 * cells, dtype=torch.float32, device=p.z.device)
+    out.index_add_(0, torch.stack(idx, 1).reshape(-1), torch.stack(vals, 1).reshape(-1))
+    return out.view(slots, 3, grid.nz, grid.nx)
+
+
+def particle_phase_stacked(
+    tiles6: torch.Tensor,
+    species: Tuple[Particles, ...],
+    origins: torch.Tensor,
+    local_grid: Grid2D,
+    *,
+    domain_grid: Grid2D,
+    shape_order: int = 3,
+):
+    """Slot-batched :func:`particle_phase` on padded box tiles.
+
+    ``tiles6`` is ``(slots, 6, pnz, pnx)``, ``origins`` ``(slots, 2)`` (the
+    physical position of each tile's cell (0, 0)), and every ``Particles``
+    leaf ``(slots, cap)`` except the 0-d ``q``/``m``.  Returns ``(species',
+    j3, counts)``: the un-folded per-tile deposits ``(slots, 3, pnz, pnx)``
+    and the ``(slots,)`` alive counts after the move, summed over species.
+    """
+    fields = Fields(*tiles6.unbind(1))
+    oz, ox = origins[:, 0:1], origins[:, 1:2]
+    slots = tiles6.shape[0]
+    j3 = torch.zeros((slots, 3) + local_grid.shape, dtype=torch.float32, device=tiles6.device)
+    counts = torch.zeros(slots, dtype=torch.float32, device=tiles6.device)
+    out_species = []
+    for p in species:
+        eb = _gather_stacked(fields, p.z - oz, p.x - ox, local_grid, shape_order)
+        p = advance_positions(boris_push(p, eb, local_grid.dt), domain_grid, local_grid.dt)
+        out_species.append(p)
+        j3 = j3 + _deposit_stacked(p._replace(z=p.z - oz, x=p.x - ox), local_grid, shape_order)
+        counts = counts + p.alive.sum(1).to(torch.float32)
+    return tuple(out_species), j3, counts
+
+
+def field_phase_stacked(
+    tiles6: torch.Tensor,
+    j3: torch.Tensor,
+    static2: torch.Tensor,
+    t,
+    local_grid: Grid2D,
+    halo: int,
+    *,
+    laser=None,
+) -> torch.Tensor:
+    """Slot-batched :func:`field_phase` on padded tiles, keeping interiors.
+
+    ``tiles6``/``j3`` are ``(slots, 6|3, pnz, pnx)`` padded E,B and folded
+    J; ``static2`` ``(slots, 2, pnz, pnx)`` holds each slot's sponge mask
+    and laser profile.  Returns the advanced ``(slots, 6, bnz, bnx)``
+    interiors: with ``halo >= 4`` the three one-cell-deep leapfrog updates
+    never reach the interior from the tile edge, so it matches the global
+    solver to f32 rounding."""
+    f = field_phase(
+        Fields(*tiles6.unbind(1)),
+        tuple(j3.unbind(1)),
+        local_grid,
+        sponge=static2[:, 0],
+        laser=laser,
+        t=t,
+        laser_profile=static2[:, 1],
+    )
+    return torch.stack(f, 1)[:, :, halo:-halo, halo:-halo].contiguous()
 
 
 def build_step_body(

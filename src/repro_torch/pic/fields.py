@@ -6,7 +6,9 @@ Counterpart of ``repro.pic.fields``.  Leapfrog:
     E^n       -> E^{n+1}    (full step, with deposited J^{n+1/2})
     B^n       -> B^{n+1/2}  (half step)
 
-Periodic differences (``torch.roll``) plus a multiplicative sponge layer.
+Periodic differences (``torch.roll`` over the last two axes, so a stack of
+per-box tiles ``(slots, nz, nx)`` steps like one grid) plus a multiplicative
+sponge layer.
 """
 from __future__ import annotations
 
@@ -38,20 +40,20 @@ class Fields(NamedTuple):
 
 def _ddz_fwd(f: torch.Tensor, dz: float) -> torch.Tensor:
     """Forward difference along z: result staggered +1/2 in z."""
-    return (torch.roll(f, -1, dims=0) - f) / dz
+    return (torch.roll(f, -1, dims=-2) - f) / dz
 
 
 def _ddz_bwd(f: torch.Tensor, dz: float) -> torch.Tensor:
     """Backward difference along z: result staggered -1/2 in z."""
-    return (f - torch.roll(f, 1, dims=0)) / dz
+    return (f - torch.roll(f, 1, dims=-2)) / dz
 
 
 def _ddx_fwd(f: torch.Tensor, dx: float) -> torch.Tensor:
-    return (torch.roll(f, -1, dims=1) - f) / dx
+    return (torch.roll(f, -1, dims=-1) - f) / dx
 
 
 def _ddx_bwd(f: torch.Tensor, dx: float) -> torch.Tensor:
-    return (f - torch.roll(f, 1, dims=1)) / dx
+    return (f - torch.roll(f, 1, dims=-1)) / dx
 
 
 def step_b_half(f: Fields, grid: Grid2D) -> Fields:

@@ -23,7 +23,6 @@ step at a time with a fetch per step.
 """
 from __future__ import annotations
 
-import contextlib
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -31,7 +30,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import resolve_device, sync_free_region
 from ..core import HeuristicCost, LoadBalancer, VirtualCluster, WorkCounterCost
 from ..kernels.constants import DEPOSIT_TILE
 from .boxes import BoxDecomposition
@@ -197,19 +196,6 @@ class Simulation:
         kernel (no host->device copy)."""
         return torch.full((), self.t, dtype=torch.float32, device=self.device)
 
-    @contextlib.contextmanager
-    def _interval_region(self):
-        """Inside: no host sync allowed when ``strict_syncs`` is set."""
-        if not (self.config.strict_syncs and self.device.type == "cuda"):
-            yield
-            return
-        prev = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            yield
-        finally:
-            torch.cuda.set_sync_debug_mode(prev)
-
     def _fetch(self, outs: StepOutputs) -> StepOutputs:
         """The interval's single device->host transfer: every history
         tensor is copied asynchronously, then one stream synchronize."""
@@ -222,7 +208,7 @@ class Simulation:
     def _run_chunk(self, n_steps: int, progress_every: int) -> None:
         """One device-resident interval + the single fetch of its history."""
         t0 = self._t_now()
-        with self._interval_region():
+        with sync_free_region(self.config.strict_syncs and self.device.type == "cuda"):
             self.fields, self.species, outs = self._interval_fn(
                 self.fields, self.species, t0, n_steps
             )
