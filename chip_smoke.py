@@ -55,7 +55,23 @@ Phases (any failure exits non-zero before the result line):
         ``torch`` on four devices, sharded ``torch`` vs the global
         ``Simulation``, ``comm="ring"`` vs ``"neighbor"``: energies within
         rtol 1e-3 and the same census;
-     e. one profiled interval of run b.
+     e. one profiled interval of run b;
+  6. the async interval pipeline and checkpointed recovery:
+     a. the 1920² problem on four logical devices, 30 steps under
+        ``pipeline="sync"`` and under ``"async"``, in turns (sync, async,
+        async, sync; ``lb_interval=10``,
+        sync-debug "error" around every interval and every adoption): each
+        kernel launched steps x species x devices times, three fetches (the
+        async run with one round still pending before its flush), no drops,
+        the alive prefix kept, the same census and energies within rtol
+        1e-3; ms/step per interval, ``pipeline_stats()`` and ``lb_steps``
+        printed, and one more interval of each pipeline profiled;
+     b. ``RecoveryRunner`` over the async runtime on four logical devices,
+        device 1 killed at interval 2, 40 steps: one restore from the step-20
+        checkpoint onto three devices (900 boxes divide by 3), held against
+        an uninterrupted three-device run (same census, energies within
+        rtol 1e-3 over steps 21-40); checkpoint bytes, snapshot and write
+        times, restore time and intervals lost printed.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -420,15 +436,19 @@ def main_path(sim, n_species: int, record: dict) -> None:
 
 def profile_interval(sim, top: int = 12) -> None:
     """Where one more interval's time goes: device time by kernel name from
-    ``torch.profiler``, and the device's busy share of the wall time.
+    ``torch.profiler``, and the device's busy share of the wall time, which
+    ends once every round is harvested and the card is idle.
     Informational; it checks nothing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    steps = 10
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.run(10)
+        sim.run(steps)
+        getattr(sim, "flush", lambda: None)()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     queue_full_ms = 0.0
@@ -448,7 +468,7 @@ def profile_interval(sim, top: int = 12) -> None:
         log("profile: the profiler recorded no device time")
         return
     log(
-        f"profile: 10 steps, wall {wall_ms:.1f} ms, kernels busy {busy:.1f} ms "
+        f"profile: {steps} steps, wall {wall_ms:.1f} ms, kernels busy {busy:.1f} ms "
         f"({100 * busy / wall_ms:.1f}%, idle {100 * (1 - busy / wall_ms):.1f}%), "
         f"launch queue full {queue_full_ms:.1f} ms"
     )
@@ -456,11 +476,11 @@ def profile_interval(sim, top: int = 12) -> None:
     ours = ("gather_push_kernel", "deposition_kernel")
     for i, (ms, count, name) in enumerate(rows):
         if i < top or any(k in name for k in ours):
-            log(f"profile: {ms / 10:9.3f} ms/step {100 * ms / busy:5.1f}%  x{count // 10:<4d} {name[:90]}")
+            log(f"profile: {ms / steps:9.3f} ms/step {100 * ms / busy:5.1f}%  x{count // steps:<4d} {name[:90]}")
         if any(k in name for k in ours):
             log(f"profile: {name[:40]} {ms / count:.3f} ms of device time per launch ({count} launches)")
     kernels_ms = sum(ms for ms, _, name in rows if any(k in name for k in ours))
-    log(f"profile: the two PIC kernels {kernels_ms / 10:.3f} ms/step of device time")
+    log(f"profile: the two PIC kernels {kernels_ms / steps:.3f} ms/step of device time")
     # the host's side: CUDA runtime calls by their own host time
     calls = sorted(
         ((ev.self_cpu_time_total / 1e3, ev.count, ev.key) for ev in prof.key_averages()
@@ -468,7 +488,7 @@ def profile_interval(sim, top: int = 12) -> None:
         reverse=True,
     )
     for ms, count, name in calls[:5]:
-        log(f"profile: host {ms / 10:8.3f} ms/step in {count // 10} calls/step of {name}")
+        log(f"profile: host {ms / steps:8.3f} ms/step in {count // steps} calls/step of {name}")
 
 
 def backends_phase() -> None:
@@ -830,6 +850,172 @@ def sharded_phase(record: dict) -> None:
     cross_checks()
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the async interval pipeline and checkpointed recovery
+# ---------------------------------------------------------------------------
+
+
+def launch_counters():
+    from repro_torch.kernels.deposition import deposit_local_tiles
+    from repro_torch.kernels.gather_push import gather_push_move
+
+    return {"gather_push": gather_push_move, "deposition": deposit_local_tiles}
+
+
+def read_launches(record: dict, want: int, label: str) -> None:
+    """Check that each kernel launched ``want`` times since its count was
+    zeroed, and add the launches to the JSON record."""
+    for key, fn in launch_counters().items():
+        if fn.launches != want:
+            raise AssertionError(f"{label}: {fn.__name__} launched {fn.launches} times, want {want}")
+        record[key]["launches"] += fn.launches
+
+
+def async_phase(record: dict, smi: str) -> None:
+    """Phase 6a: sync against async on four logical devices at 1920², run
+    in turns (sync, async, async, sync) so both see the same card state."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import ShardedRuntime
+
+    kw = dict(engine_backend="cuda", comm="neighbor", lb_interval=10, strict_syncs=True)
+    n_steps, runs, totals = 30, {}, {"sync": [], "async": []}
+    for pipeline in ("sync", "async", "async", "sync"):
+        rt = ShardedRuntime(full_width_problem(), 4, pipeline=pipeline, **kw)
+        n_sp = len(rt._qm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in launch_counters().values():
+            fn.launches = 0
+        wall = []
+        t_start = time.perf_counter()
+        for _ in range(n_steps // rt.lb_interval):
+            t0 = time.perf_counter()
+            rt.run(rt.lb_interval)
+            wall.append((time.perf_counter() - t0) * 1e3 / rt.lb_interval)
+        in_flight = rt.pipeline_stats()
+        rt.flush()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t_start) * 1e3 / n_steps
+        read_launches(record, n_steps * n_sp * rt.n_devices, f"async: {pipeline}")
+        stats = rt.pipeline_stats()
+        want_pending = 0 if pipeline == "sync" else 1
+        if in_flight["pending"] != want_pending or in_flight["harvests"] != 3 - want_pending:
+            raise AssertionError(f"async: {pipeline}: before the flush {in_flight}")
+        if stats["harvests"] != 3 or rt.host_syncs != 3 or stats["pending"] != 0:
+            raise AssertionError(f"async: {pipeline}: {stats}, host_syncs {rt.host_syncs}")
+        if rt.dropped_total != 0 or not alive_prefix_ok(rt):
+            raise AssertionError(f"async: {pipeline}: drops {rt.dropped_total} or a broken alive prefix")
+        runs.setdefault(pipeline, dict(
+            history={k: list(rt.history[k]) for k in ("field_energy", "kinetic_energy")},
+            census=rt.total_alive(),
+        ))
+        totals[pipeline].append(total)
+        log(
+            f"async: {pipeline} on 4 devices ({smi}): {[round(m, 2) for m in wall]} ms/step per "
+            f"interval on the host clock, {total:.2f} ms/step for the {n_steps} steps to the last "
+            f"flush and synchronize; lb_steps {rt.history['lb_steps']}, census {rt.total_alive()}, "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+        )
+        log(f"async: {pipeline} pipeline_stats {stats}")
+        if len(totals[pipeline]) == 1:
+            log(f"async: profile of one more interval under {pipeline}:")
+            profile_interval(rt, top=6)
+        del rt
+        torch.cuda.empty_cache()
+    for k, ref in runs["sync"]["history"].items():
+        np.testing.assert_allclose(runs["async"]["history"][k], ref, rtol=1e-3, err_msg=f"async vs sync {k}")
+    if runs["async"]["census"] != runs["sync"]["census"]:
+        raise AssertionError(f"async: census {runs['async']['census']} vs sync {runs['sync']['census']}")
+    rel = max(abs(a / b - 1) for a, b in zip(runs["async"]["history"]["field_energy"],
+                                             runs["sync"]["history"]["field_energy"]) if b)
+    log(f"async: async vs sync: same census, max rel field energy diff {rel:.3g}; ms/step in turns "
+        f"sync {totals['sync'][0]:.2f}, async {totals['async'][0]:.2f}, async {totals['async'][1]:.2f}, "
+        f"sync {totals['sync'][1]:.2f} ({smi})")
+
+
+def recovery_phase(record: dict, smi: str) -> None:
+    """Phase 6b: RecoveryRunner over the async runtime, 4 -> 3 devices."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.dist import Fault, FaultInjector, FaultSchedule, RecoveryRunner, ShardedRuntime
+
+    ckpt_dir = ROOT / "chip_scratch" / "smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    kw = dict(engine_backend="cuda", comm="neighbor", lb_interval=10, strict_syncs=True,
+              pipeline="async")
+
+    def make(n_devices):
+        return ShardedRuntime(full_width_problem(), n_devices, **kw)
+
+    inj = FaultInjector(FaultSchedule([Fault("kill_device", interval=2, device=1)]))
+    n_steps = 40
+    for fn in launch_counters().values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = RecoveryRunner(make, 4, ckpt_dir=ckpt_dir, keep=2, injector=inj)
+    runner.run(n_steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_sp = len(runner.runtime._qm)
+    # intervals 0-2 on 4 devices (2 lost with device 1), 2-3 again on 3
+    read_launches(record, 30 * n_sp * 4 + 20 * n_sp * 3, "recovery")
+    restores = [e for e in runner.events if e["kind"] == "restore"]
+    if len(restores) != 1 or restores[0]["ckpt_step"] != 20 or runner.n_devices_active != 3:
+        raise AssertionError(f"recovery: events {runner.events}")
+    rt = runner.runtime
+    if rt.step_idx != n_steps or rt.dropped_total != 0 or not alive_prefix_ok(rt):
+        raise AssertionError(f"recovery: step {rt.step_idx}, drops {rt.dropped_total}")
+    newest = ckpt_dir / f"step_{n_steps:010d}"
+    ckpt_bytes = sum(p.stat().st_size for p in newest.iterdir())
+    t1 = time.perf_counter()
+    tree, _ = restore_checkpoint(ckpt_dir, None)
+    load_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    save_checkpoint(ckpt_dir / "timed", tree, n_steps)
+    write_s = time.perf_counter() - t1
+    ckpts = [e for e in runner.events if e["kind"] == "checkpoint"]
+    got = {k: list(rt.history[k]) for k in ("field_energy", "kinetic_energy")}
+    census = rt.total_alive()
+    log(
+        f"recovery: 4 -> 3 devices ({smi}): {wall:.1f} s for {n_steps} steps with "
+        f"{len(ckpts)} checkpoints; restore of step {restores[0]['ckpt_step']} at step "
+        f"{restores[0]['from_step']}, {restores[0]['intervals_lost']} intervals lost, "
+        f"{restores[0]['restore_s']:.2f} s to rebuild on 3 devices and restore; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+    )
+    log(
+        f"recovery: checkpoint {ckpt_bytes} bytes; snapshot {[e['snapshot_s'] for e in ckpts]} s, "
+        f"checkpoint call (snapshot + handing the write to its thread) {[e['wall_s'] for e in ckpts]} s; "
+        f"one synchronous write {write_s:.2f} s, one template-free load {load_s:.2f} s"
+    )
+    log(f"recovery: events {[{k: v for k, v in e.items() if k != 'error'} for e in runner.events]}")
+    del tree, rt, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    ref = make(3)
+    ref.run(n_steps)
+    ref.flush()
+    for k, want in got.items():
+        np.testing.assert_allclose(want, ref.history[k][n_steps - len(want):], rtol=1e-3,
+                                   err_msg=f"recovered vs uninterrupted {k}")
+    if ref.total_alive() != census:
+        raise AssertionError(f"recovery: census {census}, uninterrupted {ref.total_alive()}")
+    log(f"recovery: matches an uninterrupted 3-device run: census {census}, "
+        f"energies of steps {n_steps - len(got['field_energy']) + 1}-{n_steps} within rtol 1e-3")
+    del ref
+    torch.cuda.empty_cache()
+
+
 def cross_checks() -> None:
     """Phase 5d at 256²: cuda vs torch, torch vs the global solver, ring vs
     neighbour; energies within rtol 1e-3 and the same census."""
@@ -947,6 +1133,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     backends_phase()
     sharded_phase(record)
+    async_phase(record, smi)
+    recovery_phase(record, smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -7,11 +7,12 @@ without it raises, so a run never quietly measures the CPU.
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Optional, Union
+from typing import Any, Callable, Iterator, Optional, Union
 
+import numpy as np
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device", "sync_free_region"]
+__all__ = ["DEFAULT_DEVICE", "resolve_device", "sync_free_region", "to_device", "map_tensors"]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -42,3 +43,27 @@ def sync_free_region(enabled: bool) -> Iterator[None]:
         yield
     finally:
         torch.cuda.set_sync_debug_mode(prev)
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without a host synchronisation: on CUDA
+    through a pinned copy and a non-blocking upload (a pageable upload
+    waits for the stream), elsewhere as is."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def map_tensors(fn: Callable, tree: Any) -> Any:
+    """``fn`` over the tensor leaves of nested dicts, lists, tuples and
+    NamedTuples; other leaves pass through."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_tensors(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tensors(fn, v) for v in tree)
+    return tree

@@ -9,11 +9,10 @@ interval-pipeline flag, and snapshot/restore.  :class:`DistributedPICRuntime`
 adds the PIC diagnostics.  ``repro_torch.dist.ShardedRuntime`` satisfies
 both; ``tests/test_torch_sharded.py`` checks it.
 
-Pipelines: ``"sync"`` (fetch each round's counter history before dispatching
-the next) is ported.  ``"async"`` (the reference's double-buffered
-``IntervalPipeline``) is not yet: :func:`validate_pipeline` raises
-``NotImplementedError`` for it rather than running the sync pipeline under
-its name.
+Pipelines: ``"sync"`` fetches each round's counter history before issuing
+the next; ``"async"`` (``repro_torch.pic.engine.IntervalPipeline`` at depth
+2) issues round *k+1* before fetching round *k*, so an adoption lands one
+interval later.
 """
 from __future__ import annotations
 
@@ -39,21 +38,14 @@ __all__ = [
     "ENGINE_BACKENDS",
 ]
 
-#: the interval-pipeline modes of the reference; only "sync" runs here yet
+#: the two interval-pipeline modes every runtime must accept
 PIPELINES = ("sync", "async")
 
 
 def validate_pipeline(pipeline: str) -> str:
-    """Validate a ``pipeline=`` flag: ``"sync"`` is returned, ``"async"``
-    raises ``NotImplementedError`` (ROADMAP queue 1, the async interval
-    pipeline), anything else ``ValueError``."""
+    """Validate a ``pipeline=`` flag value against :data:`PIPELINES`."""
     if pipeline not in PIPELINES:
         raise ValueError(f"pipeline must be one of {PIPELINES}, got {pipeline!r}")
-    if pipeline == "async":
-        raise NotImplementedError(
-            "pipeline='async' (the double-buffered IntervalPipeline) is not ported "
-            "yet; see ROADMAP.md queue 1, 'pipeline=\"async\"'"
-        )
     return pipeline
 
 

@@ -1,7 +1,7 @@
 """The sharded production runtime: slot-major box state over a ring of
 logical devices, one device-resident loop per LB interval, one fetch.
 
-Counterpart of ``repro.dist.sharded_runtime`` (``pipeline="sync"``,
+Counterpart of ``repro.dist.sharded_runtime`` (both pipelines,
 ``overlap=False``).  The reference is single-controller: one ``shard_map``
 program over a device mesh, whose collectives are ``ppermute`` hops.  The
 port keeps that design with *logical devices*: a ``ShardedRuntime`` holds
@@ -51,8 +51,20 @@ host; with ``strict_syncs`` it runs under ``torch.cuda.set_sync_debug_mode
 balancer, and an adoption re-commits state as a slot permutation, which may
 move rows between logical devices.
 
-Not ported yet: ``pipeline="async"`` (raises ``NotImplementedError``),
-``overlap=True`` (raises ``NotImplementedError``) and ``interval_hlo``.
+Two interval pipelines drive the host loop (``pipeline=``), both through
+``repro_torch.pic.engine.IntervalPipeline``: ``"sync"`` (depth 1) issues
+round *k*, fetches its history, runs the balancer, commits any adoption,
+then issues *k+1*; ``"async"`` (depth 2) issues *k+1* under the current
+mapping before fetching *k*, so the balancer runs while *k+1* executes and
+an adoption permutes *k+1*'s output: a mapping decided from round *k*'s
+counters takes effect at round *k+2*.  Histories are read under their
+issue-time ``slot_box`` (it rides the pipeline as metadata), so the physics
+is that of ``"sync"``; still one device->host sync per interval, now on
+that round's event.  ``flush()`` drains the pipeline, and the observability
+accessors and ``snapshot()`` flush first.
+
+Not ported yet: ``overlap=True`` (raises ``NotImplementedError``) and
+``interval_hlo``.
 """
 from __future__ import annotations
 
@@ -62,7 +74,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .._device import sync_free_region
+from .._device import sync_free_region, to_device
 from ..core import LoadBalancer
 from ..core.policies import hop_radius, locality_repair
 from ..kernels.constants import DEPOSIT_TILE
@@ -76,7 +88,7 @@ from ..pic.boxes import (
     padded_cell_map,
 )
 from ..pic.deposition import box_work_counters
-from ..pic.engine import field_phase_stacked, particle_phase_stacked
+from ..pic.engine import IntervalPipeline, field_phase_stacked, particle_phase_stacked
 from ..pic.fields import Fields, make_sponge
 from ..pic.grid import Grid2D
 from ..pic.particles import Particles
@@ -147,7 +159,8 @@ class ShardedRuntime(_StragglerMixin):
                   destination-aware emigrant packs over directional hops;
                   ``"ring"``: the all-gather reference path.
     overlap:      only ``False`` (split-phase stepping is not ported yet).
-    pipeline:     only ``"sync"`` (the async pipeline is not ported yet).
+    pipeline:     ``"sync"`` (default) or ``"async"`` (double-buffered
+                  intervals, adoption one interval late).
     engine_backend: ``"cuda"`` (default) runs ``kernels.ops.
                   particle_phase_slots`` (the CUDA kernels on CUDA tensors,
                   their plain versions on CPU tensors) and feeds the
@@ -169,8 +182,10 @@ class ShardedRuntime(_StragglerMixin):
     devices:      the logical devices' torch devices (the first
                   ``n_devices``); by default ``n_devices`` copies of
                   ``device`` (default ``"cuda"``, which raises without one).
-    strict_syncs: run each interval under ``torch.cuda.set_sync_debug_mode
-                  ("error")``, so any host synchronisation inside it fails.
+    strict_syncs: run each interval and each adoption's permutation under
+                  ``torch.cuda.set_sync_debug_mode("error")``, so any host
+                  synchronisation inside them fails; the harvest's event
+                  wait is then the interval's only sync.
     """
 
     def __init__(
@@ -363,19 +378,29 @@ class ShardedRuntime(_StragglerMixin):
         return inv
 
     def _commit_state(self, tiles: np.ndarray, species) -> None:
-        """Put slot-major host state on the logical devices: device ``d``
-        takes rows ``[d*bpd, (d+1)*bpd)``."""
+        """Put slot-major host state on the logical devices (device ``d``
+        takes rows ``[d*bpd, (d+1)*bpd)``) and hand the (tiles, species)
+        chain to the interval pipeline: depth 1 for ``pipeline="sync"``,
+        depth 2 for ``"async"``.  On a restore the pipeline is drained and
+        its chain replaced."""
         bpd = self._bpd
-        self._tiles = []
-        self._species = []
+        dev_tiles, dev_species = [], []
         for d, dev in enumerate(self.devices):
             rows = slice(d * bpd, (d + 1) * bpd)
-            self._tiles.append(torch.from_numpy(np.ascontiguousarray(tiles[rows])).to(dev))
-            self._species.append(
+            dev_tiles.append(torch.from_numpy(np.ascontiguousarray(tiles[rows])).to(dev))
+            dev_species.append(
                 tuple(
                     {k: torch.from_numpy(np.ascontiguousarray(v[rows])).to(dev) for k, v in sp.items()}
                     for sp in species
                 )
+            )
+        pipe = getattr(self, "_pipe", None)
+        if pipe is not None:
+            pipe.drain()
+            pipe.reset((dev_tiles, dev_species))
+        else:
+            self._pipe = IntervalPipeline(
+                (dev_tiles, dev_species), depth=1 if self.pipeline == "sync" else 2
             )
         # where the merge's compaction writes the lanes it discards: past
         # the slot buffers, spread over _TRASH cells (per device, per species)
@@ -388,6 +413,18 @@ class ShardedRuntime(_StragglerMixin):
         ]
         self._commit_slot_tables()
         self.host_dispatches += 1
+
+    @property
+    def _tiles(self) -> List[torch.Tensor]:
+        """Tail of the pipeline's state chain: per device, the slot-major
+        field interiors the next round consumes."""
+        return self._pipe.state[0]
+
+    @property
+    def _species(self) -> List[Tuple[Dict[str, torch.Tensor], ...]]:
+        """Tail of the pipeline's state chain: per device, the slot-major
+        particle buffers of each species."""
+        return self._pipe.state[1]
 
     def _commit_slot_tables(self) -> None:
         """Upload each device's tables for the committed ``slot_box`` (they
@@ -418,7 +455,7 @@ class ShardedRuntime(_StragglerMixin):
                 tab["my_cmap"] = self._cell_map[boxes].reshape(-1)
                 tab["cmap_all"] = self._cell_map[self._slot_box].reshape(-1)
                 tab["imap_all"] = self._int_map[self._slot_box].reshape(-1)
-            tensors = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in tab.items()}
+            tensors = {k: to_device(v, dev) for k, v in tab.items()}
             # strip tables cover one channel on the host; expand to all of
             # them on the device (channel-major flat layouts)
             bnsq = self.grid.box_nz * self.grid.box_nx
@@ -921,14 +958,19 @@ class ShardedRuntime(_StragglerMixin):
             )
         return new_tiles, [tuple(sp) for sp in new_species], rows
 
-    def _interval(self, n_steps: int) -> List[Tuple[torch.Tensor, ...]]:
-        """``n_steps`` steps on the devices; per device the stacked history
-        ``(f32 (n_steps, 4, bpd), i32 (n_steps, 2, bpd), demand)``."""
+    @property
+    def _strict(self) -> bool:
+        return self.strict_syncs and any(d.type == "cuda" for d in self.devices)
+
+    def _interval(self, state, n_steps: int, t_start: float):
+        """The interval program: ``n_steps`` steps on the devices from
+        ``state`` at time ``t_start``; returns the new state and, per
+        device, the stacked history ``(f32 (n_steps, 4, bpd), i32 (n_steps,
+        2, bpd), demand)``."""
         dt = self.grid.dt
-        tiles, species = self._tiles, self._species
-        strict = self.strict_syncs and any(d.type == "cuda" for d in self.devices)
-        with sync_free_region(strict):
-            t0 = [torch.full((), self.t, dtype=torch.float32, device=dev) for dev in self.devices]
+        tiles, species = state
+        with sync_free_region(self._strict):
+            t0 = [torch.full((), t_start, dtype=torch.float32, device=dev) for dev in self.devices]
             steps = [torch.arange(n_steps, dtype=torch.float32, device=dev) for dev in self.devices]
             hist = [[] for _ in self.devices]
             for i in range(n_steps):
@@ -936,20 +978,16 @@ class ShardedRuntime(_StragglerMixin):
                 tiles, species, rows = self._step(tiles, species, t)
                 for d, r in enumerate(rows):
                     hist[d].append(r)
-            self._tiles, self._species = tiles, species
-            return [tuple(torch.stack(leaf) for leaf in zip(*h)) for h in hist]
+            return (tiles, species), [tuple(torch.stack(leaf) for leaf in zip(*h)) for h in hist]
 
-    def _fetch(self, hist: List[Tuple[torch.Tensor, ...]]) -> Dict[str, np.ndarray]:
-        """The interval's single device->host transfer: every history tensor
-        is copied asynchronously, then one synchronize per card."""
-        host = [tuple(t.to("cpu", non_blocking=True) for t in h) for h in hist]
-        for dev in {d for d in self.devices if d.type == "cuda"}:
-            torch.cuda.synchronize(dev)
-        f32 = np.concatenate([h[0].numpy() for h in host], axis=2)  # (n_steps, 4, S)
-        i32 = np.concatenate([h[1].numpy() for h in host], axis=2)
+    @staticmethod
+    def _decode(host: List[Tuple[np.ndarray, ...]]) -> Dict[str, np.ndarray]:
+        """A harvested history (per device) as slot-ordered arrays."""
+        f32 = np.concatenate([h[0] for h in host], axis=2)  # (n_steps, 4, S)
+        i32 = np.concatenate([h[1] for h in host], axis=2)
         out = {k: f32[:, i] for i, k in enumerate(_F32_KEYS)}
         out.update({k: i32[:, i] for i, k in enumerate(_I32_KEYS)})
-        out["emig_demand"] = np.concatenate([h[2].numpy() for h in host], axis=2)
+        out["emig_demand"] = np.concatenate([h[2] for h in host], axis=2)
         return out
 
     # ------------------------------------------------------------------
@@ -967,34 +1005,43 @@ class ShardedRuntime(_StragglerMixin):
             remaining -= chunk
 
     def step(self) -> Dict[str, float]:
-        """Advance a single step."""
+        """Advance a single step.  Under ``pipeline="async"`` the returned
+        diagnostics reflect the last *harvested* round (one step behind the
+        issue frontier)."""
         self._run_piece(1)
+        lag = 1 if self.pipeline == "sync" else 2
         return {
             "step": self.step_idx,
             "alive": float(self._alive_by_box.sum()),
             "adopted": bool(
-                self.history["lb_steps"] and self.history["lb_steps"][-1] >= self.step_idx - 1
+                self.history["lb_steps"] and self.history["lb_steps"][-1] >= self.step_idx - lag
             ),
         }
 
     def flush(self) -> None:
-        """Nothing is in flight under ``pipeline="sync"``: every interval is
-        harvested inside :meth:`run`."""
+        """Drain the interval pipeline: harvest every round in flight
+        (feeding the balancer, the straggler loop and the pack controller)
+        and commit any adoption it triggers.  A no-op when nothing is in
+        flight, as always under ``pipeline="sync"``."""
+        while self._pipe.pending:
+            self._harvest_one()
 
     def pipeline_stats(self) -> Dict:
-        """Host-side accounting of the interval loop, in the reference's
-        keys: ``host_blocked_s`` is the time the host spent issuing the
-        intervals' device work plus waiting for their fetches
-        (``dispatch_s`` + ``fetch_s``); ``balance_s`` is the LB turnaround
-        after each fetch (bookkeeping, balancer, adoption), which the sync
-        pipeline does not overlap with device work."""
+        """Interval-pipeline accounting, in the reference's keys: the mode,
+        depth, rounds in flight, rounds harvested, ``host_blocked_s`` (host
+        time inside the pipeline: issuing rounds, waiting on a round's
+        history) and ``overlapped_host_s`` (host time between pipeline calls
+        with a round in flight: the LB turnaround ``"async"`` hides, 0 under
+        ``"sync"``).  Also ``dispatch_s`` (issuing), ``fetch_s`` (waiting on
+        and decoding histories) and ``balance_s`` (bookkeeping, balancer and
+        adoption after each harvest)."""
         return {
             "pipeline": self.pipeline,
-            "depth": 1,
-            "pending": 0,
-            "harvests": self.host_syncs,
-            "host_blocked_s": self._host_s["dispatch"] + self._host_s["fetch"],
-            "overlapped_host_s": 0.0,
+            "depth": self._pipe.depth,
+            "pending": self._pipe.pending,
+            "harvests": self._pipe.harvests,
+            "host_blocked_s": self._pipe.host_blocked_s,
+            "overlapped_host_s": self._pipe.overlapped_host_s,
             "host_syncs": self.host_syncs,
             "dispatch_s": self._host_s["dispatch"],
             "fetch_s": self._host_s["fetch"],
@@ -1002,26 +1049,49 @@ class ShardedRuntime(_StragglerMixin):
         }
 
     def _run_piece(self, n_steps: int) -> None:
-        """Run one interval piece under the current mapping, fetch its
-        history (the piece's only device->host sync), fold it into the host
-        bookkeeping, and run the balancer if the piece opened an LB round."""
-        step_idx = self.step_idx
-        lb_due = self.balancer.should_run(step_idx)
-        sb = self._slot_box.copy()
-        mapping = self.balancer.mapping.copy()
-        keys = self._mig_keys()
+        """Issue one interval piece under the current mapping, then harvest
+        down to the pipeline's depth: at once under ``"sync"`` (depth 1),
+        behind one round in flight under ``"async"`` (depth 2: the previous
+        round's history is read while this piece executes, and an adoption
+        it triggers corrects the in-flight state one interval late)."""
+        meta = {
+            "n_steps": n_steps,
+            "step_idx": self.step_idx,
+            "lb_due": self.balancer.should_run(self.step_idx),
+            # histories are slot-ordered under the issue-time mapping; the
+            # harvest must read them through that slot_box, not a later one
+            "slot_box": self._slot_box.copy(),
+            "mapping": self.balancer.mapping.copy(),
+            "mig_keys": self._mig_keys(),
+        }
         t0 = time.perf_counter()
-        hist = self._interval(n_steps)
-        t1 = time.perf_counter()
+        self._pipe.enqueue(self._interval, n_steps, self.t, meta=meta)
+        self._host_s["dispatch"] += time.perf_counter() - t0
         self.host_dispatches += 1
         self.step_idx += n_steps
         self.t += n_steps * self.grid.dt
-        host = self._fetch(hist)
+        while self._pipe.pending >= self._pipe.depth:
+            self._harvest_one()
+
+    def _harvest_one(self) -> None:
+        """Fetch the oldest round's history (the interval's only
+        device->host sync), fold it into the host bookkeeping, and run the
+        balancer if that round opened an LB interval.  An adoption is
+        committed as a slot permutation of the pipeline's tail state: under
+        ``"async"`` that is the in-flight round's output, so it lands one
+        interval after the counters it came from."""
+        t1 = time.perf_counter()
+        harvested = self._pipe.harvest()
+        if harvested is None:
+            return
+        host, meta = harvested
+        host = self._decode(host)
         t2 = time.perf_counter()
-        self._host_s["dispatch"] += t1 - t0
         self._host_s["fetch"] += t2 - t1
         self.last_history = host
         self.host_syncs += 1
+        n_steps, step_idx = meta["n_steps"], meta["step_idx"]
+        sb, mapping, keys = meta["slot_box"], meta["mapping"], meta["mig_keys"]
 
         n_boxes = self.grid.n_boxes
         work_box = np.empty((n_steps, n_boxes))
@@ -1036,7 +1106,7 @@ class ShardedRuntime(_StragglerMixin):
         self.history["field_energy"].extend(float(v) for v in host["field_energy"].sum(axis=1))
         self.history["kinetic_energy"].extend(float(v) for v in host["kinetic_energy"].sum(axis=1))
 
-        if lb_due:
+        if meta["lb_due"]:
             # row 0 is the round-boundary step: what per-step execution
             # would have fed the balancer
             self._observe_straggler(work_box[0], mapping)
@@ -1099,8 +1169,11 @@ class ShardedRuntime(_StragglerMixin):
     def _recommit(self, new_mapping: np.ndarray) -> None:
         """Realize an adopted mapping as a slot permutation.  Boxes staying
         on a device keep their slots; incoming boxes fill the freed slots in
-        curve order.  Rows move between logical devices with one
-        ``index_select`` per (source, destination) pair."""
+        curve order.  The permutation is a correction of the pipeline's tail
+        state, so under ``pipeline="async"`` it applies to the in-flight
+        round's output, one interval after the counters that motivated it.
+        With ``strict_syncs`` it and the tables' upload run under sync-debug
+        mode "error": neither may wait on the round in flight."""
         S, bpd = self.grid.n_boxes, self._bpd
         old_slot_of_box = np.empty(S, np.int64)
         old_slot_of_box[self._slot_box] = np.arange(S)
@@ -1120,49 +1193,68 @@ class ShardedRuntime(_StragglerMixin):
         if (new_slot_box < 0).any() or len(set(new_slot_box)) != S:
             raise AssertionError("slot permutation must cover every box once")
         perm = old_slot_of_box[new_slot_box]
+        with sync_free_region(self._strict):
+            self._pipe.correct(self._permute_state, perm)
+            self._slot_box = new_slot_box
+            if self.comm == "neighbor":
+                old_offsets = self._offsets
+                self._build_comm_plan()
+                if self._offsets != old_offsets:
+                    # keep learned pack capacities on surviving offsets; new
+                    # offsets start from the floor (demand-driven growth reacts
+                    # within one interval)
+                    for s, d in enumerate(self._mig_caps):
+                        self._mig_caps[s] = {o: d.get(o, _MIN_MIG) for o in self._offsets}
+                    self._mig_idle = {
+                        (s, o): v for (s, o), v in self._mig_idle.items() if o in self._offsets
+                    }
+            self._commit_slot_tables()
+        self.host_dispatches += 2  # the permutation + the tables' commit
+
+    def _permute_state(self, state, perm: np.ndarray):
+        """The adoption's slot permutation of a (tiles, species) state: new
+        slot ``s`` takes old slot ``perm[s]``.  Rows move between logical
+        devices with one ``index_select`` per (source, destination) pair;
+        the indices travel without a host sync."""
+        bpd, n_dev = self._bpd, self.n_devices
+        tiles, species = state
+        moves = []
+        for d, dev in enumerate(self.devices):
+            src = perm[d * bpd : (d + 1) * bpd]
+            if np.array_equal(src, np.arange(d * bpd, (d + 1) * bpd)):
+                moves.append(None)
+                continue
+            pairs = []
+            for e in np.unique(src // bpd):
+                rows = np.nonzero(src // bpd == e)[0]
+                pairs.append((int(e), to_device(src[rows] - e * bpd, self.devices[e]),
+                              to_device(rows, dev)))
+            moves.append(pairs)
 
         def permute(per_device: List[torch.Tensor]) -> List[torch.Tensor]:
             out = []
             for d, dev in enumerate(self.devices):
-                src = perm[d * bpd : (d + 1) * bpd]
-                if np.array_equal(src, np.arange(d * bpd, (d + 1) * bpd)):
+                if moves[d] is None:
                     out.append(per_device[d])
                     continue
                 new = torch.empty_like(per_device[d])
-                for e in np.unique(src // bpd):
-                    rows = np.nonzero(src // bpd == e)[0]
-                    take = torch.from_numpy(src[rows] - e * bpd).to(per_device[e].device)
+                for e, take, rows in moves[d]:
                     moved = per_device[e].index_select(0, take).to(dev, non_blocking=True)
-                    new.index_copy_(0, torch.from_numpy(rows).to(dev), moved)
+                    new.index_copy_(0, rows, moved)
                 out.append(new)
             return out
 
-        self._tiles = permute(self._tiles)
         n_sp = len(self._qm)
         per_key = {
-            (s, k): permute([self._species[d][s][k] for d in range(self.n_devices)])
+            (s, k): permute([species[d][s][k] for d in range(n_dev)])
             for s in range(n_sp)
-            for k in self._species[0][s]
+            for k in species[0][s]
         }
-        self._species = [
-            tuple({k: per_key[(s, k)][d] for k in self._species[0][s]} for s in range(n_sp))
-            for d in range(self.n_devices)
+        new_species = [
+            tuple({k: per_key[(s, k)][d] for k in species[0][s]} for s in range(n_sp))
+            for d in range(n_dev)
         ]
-        self._slot_box = new_slot_box
-        if self.comm == "neighbor":
-            old_offsets = self._offsets
-            self._build_comm_plan()
-            if self._offsets != old_offsets:
-                # keep learned pack capacities on surviving offsets; new
-                # offsets start from the floor (demand-driven growth reacts
-                # within one interval)
-                for s, d in enumerate(self._mig_caps):
-                    self._mig_caps[s] = {o: d.get(o, _MIN_MIG) for o in self._offsets}
-                self._mig_idle = {
-                    (s, o): v for (s, o), v in self._mig_idle.items() if o in self._offsets
-                }
-        self._commit_slot_tables()
-        self.host_dispatches += 2  # the permutation + the tables' commit
+        return permute(tiles), new_species
 
     # ------------------------------------------------------------------
     # capacity awareness (straggler mitigation hook)
@@ -1212,10 +1304,14 @@ class ShardedRuntime(_StragglerMixin):
         tiles = self._host_tiles()[inv]
         species = []
         for s in range(len(self._qm)):
-            alive = np.concatenate([sp[s]["alive"].cpu().numpy() for sp in self._species]).reshape(-1)
+            # compacted on each device (slot-major, lane order), so only the
+            # alive particles cross to the host
+            alive = [sp[s]["alive"].reshape(-1) for sp in self._species]
             species.append(
                 {
-                    k: np.concatenate([sp[s][k].cpu().numpy() for sp in self._species]).reshape(-1)[alive]
+                    k: np.concatenate(
+                        [sp[s][k].reshape(-1)[a].cpu().numpy() for sp, a in zip(self._species, alive)]
+                    )
                     for k in _PKEYS
                 }
             )
@@ -1237,7 +1333,7 @@ class ShardedRuntime(_StragglerMixin):
         the checkpointed populations are re-knapsacked onto this runtime's
         devices (gate bypassed, locality-repaired in neighbour mode), state
         is re-committed slot-major, and pack capacities are restored (summed
-        when the device count changed)."""
+        when the device count changed).  Rounds in flight are discarded."""
         grid, S = self.grid, self.grid.n_boxes
         tiles = np.asarray(snap["tiles"], np.float32)
         if tiles.shape != (S, 6, grid.box_nz, grid.box_nx):
@@ -1247,7 +1343,10 @@ class ShardedRuntime(_StragglerMixin):
             )
         if len(snap["species"]) != len(self._qm):
             raise ValueError("snapshot species count does not match this problem")
-        self.flush()
+        # rounds still in flight belong to the timeline the restore rolls
+        # back: _commit_state drops them unread.  The reference harvests
+        # them first, which feeds their counters to the balancer about to
+        # be replaced and fails when a corrupt-state fault has poisoned it
         restore_balancer(self.balancer, snap, n_boxes=S)
         counts = np.nan_to_num(np.asarray(snap["counts"], np.float64), nan=0.0)
         costs = np.maximum(counts, 0.0)

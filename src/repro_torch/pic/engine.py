@@ -24,13 +24,20 @@ more often than that.
     the caller fetches them, once per interval.  (PyTorch runs eagerly, so
     the loop issues the same kernels a scan would; the step count stays a
     host integer and time stays a device tensor, ``t0 + i·dt``.)
+  * :class:`IntervalPipeline` — interval programs as re-enqueueable
+    closures over a rotating state, double-buffered: round *k+1* is issued
+    before round *k*'s history is read, so the balancer's turnaround
+    overlaps device work (``pipeline="async"``).
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+import time
+from collections import deque
+from typing import Any, Callable, Deque, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from .._device import map_tensors
 from .deposition import box_particle_counts, box_work_counters, deposit_current
 from .fields import Fields, apply_sponge, field_energy, step_b_half, step_e
 from .grid import Grid2D
@@ -52,6 +59,7 @@ __all__ = [
     "field_phase_stacked",
     "build_step_body",
     "make_interval_fn",
+    "IntervalPipeline",
 ]
 
 #: particle-phase backends: the global tensor path, or the binned CUDA kernels
@@ -351,3 +359,188 @@ def make_interval_fn(step_body: Callable, grid: Grid2D) -> Callable:
         return fields, species, history
 
     return interval
+
+
+def _start_fetch(history: Any) -> Tuple[Any, List[Any]]:
+    """Issue the device->host copy of every history tensor without waiting:
+    CUDA tensors go into fresh pinned buffers (``non_blocking``) and one
+    event per card is recorded behind the copies; CPU tensors are cloned,
+    so later in-place work on the state cannot reach a round's history."""
+    cards = set()
+
+    def copy(t: torch.Tensor) -> torch.Tensor:
+        if t.device.type != "cuda":
+            return t.detach().clone()
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        buf.copy_(t, non_blocking=True)
+        cards.add(t.device)
+        return buf
+
+    host = map_tensors(copy, history)
+    events = []
+    for dev in cards:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev))
+        events.append(ev)
+    return host, events
+
+
+class IntervalPipeline:
+    """Interval programs as re-enqueueable closures over a rotating state
+    (counterpart of ``repro.pic.engine.IntervalPipeline``).
+
+    The serialisation the async LB pipeline removes: after issuing round
+    *k*, the host waits for its history, runs the balancer, commits the
+    next mapping, and only then issues round *k+1*, so the device idles for
+    the whole host turnaround.  The pipeline owns the state chain, so the
+    caller can
+
+      1. :meth:`enqueue` round *k+1* under the current mapping right away,
+      2. :meth:`harvest` round *k*'s history while *k+1* executes,
+      3. :meth:`correct` the tail state (the stale-mapping slot
+         permutation): it lands between rounds *k+1* and *k+2*.
+
+    There is no worker thread.  The reference dispatches from one because
+    XLA:CPU runs multi-device programs synchronously at dispatch.  Here a
+    program runs on the calling thread and issues its kernels, which CUDA
+    executes asynchronously in stream order; that order alone puts a
+    correction after the round in flight and before the next one, and a
+    Python worker would only contend with the balancer for the GIL.  Each
+    round's history is copied into pinned host buffers as soon as the round
+    is issued, with an event recorded behind the copies: a harvest waits on
+    that event only, never on the whole device, so the round issued after
+    it stays in flight.  On CPU tensors everything runs inline at the call,
+    and the semantics of ``depth`` still hold: histories come back in issue
+    order under their issue-time ``meta``, and a correction reaches only
+    the rounds enqueued after it.
+
+    ``depth`` bounds the rounds in flight: 1 is the synchronous loop
+    (harvest right after each enqueue), 2 the double-buffered one.
+
+    Accounting: :attr:`host_blocked_s` is the host's time inside the
+    pipeline's calls (issuing rounds, waiting on a round's event, converting
+    its history); :attr:`overlapped_host_s` is the host's time between
+    pipeline calls while a round was in flight, the host work the pipeline
+    hides (0 under depth 1, the balancer turnaround under depth 2);
+    :attr:`harvests` counts the histories fetched, one host sync each.
+    """
+
+    def __init__(self, state: Any, *, depth: int = 2):
+        if depth < 1:
+            raise ValueError("pipeline depth must be >= 1")
+        self.depth = depth
+        self._state = state
+        self._inflight: Deque[Tuple[Any, List[Any], Any]] = deque()
+        #: host seconds spent inside pipeline calls
+        self.host_blocked_s = 0.0
+        #: host seconds between pipeline calls with a round in flight
+        self.overlapped_host_s = 0.0
+        #: rounds harvested (each one device->host sync)
+        self.harvests = 0
+        self._resume_t: Optional[float] = None
+        self._correct_err: Optional[BaseException] = None
+
+    def _absorb_overlap(self) -> None:
+        if self._resume_t is not None:
+            self.overlapped_host_s += time.perf_counter() - self._resume_t
+            self._resume_t = None
+
+    def _mark_resume(self) -> None:
+        self._resume_t = time.perf_counter() if self._inflight else None
+
+    def _check_correction(self) -> None:
+        """Re-raise a failed :meth:`correct` at the next pipeline call, as
+        the reference does, before the caller acts on state the correction
+        never produced."""
+        if self._correct_err is not None:
+            err, self._correct_err = self._correct_err, None
+            raise RuntimeError("enqueued pipeline correction failed") from err
+
+    @property
+    def state(self) -> Any:
+        """The tail of the state chain: what the next enqueue consumes.  No
+        wait is needed, since any use of it on the device is stream-ordered
+        after the rounds in flight."""
+        self._check_correction()
+        return self._state
+
+    @property
+    def pending(self) -> int:
+        """Rounds enqueued but not yet harvested."""
+        return len(self._inflight)
+
+    @property
+    def full(self) -> bool:
+        """True when another enqueue would exceed ``depth`` rounds in
+        flight (harvest first)."""
+        return len(self._inflight) >= self.depth
+
+    def enqueue(self, program: Callable, *args, meta: Any = None) -> None:
+        """Run ``program(state, *args) -> (state', history)`` on the tail
+        state (on CUDA this issues its kernels and returns), start the
+        history's copy to the host, and queue it with ``meta`` for
+        :meth:`harvest`."""
+        if self.full:
+            raise RuntimeError(f"pipeline full ({self.depth} rounds in flight); harvest first")
+        self._check_correction()
+        self._absorb_overlap()
+        t0 = time.perf_counter()
+        self._state, history = program(self._state, *args)
+        host, events = _start_fetch(history)
+        self.host_blocked_s += time.perf_counter() - t0
+        self._inflight.append((host, events, meta))
+        self._mark_resume()
+
+    def correct(self, fn: Callable, *args) -> None:
+        """Replace the tail state with ``fn(state, *args)``: after every
+        round already issued, before anything enqueued later.  A failure
+        leaves the state as it was and is raised at the next pipeline call."""
+        try:
+            self._state = fn(self._state, *args)
+        except Exception as e:  # surfaced by _check_correction
+            self._correct_err = e
+
+    def harvest(self) -> Optional[Tuple[Any, Any]]:
+        """Wait for the oldest round's history copy (on its event only) and
+        return ``(numpy history, meta)``; ``None`` when nothing is in
+        flight."""
+        if not self._inflight:
+            return None
+        self._absorb_overlap()
+        host, events, meta = self._inflight.popleft()
+        t0 = time.perf_counter()
+        for ev in events:
+            ev.synchronize()
+        out = map_tensors(lambda t: t.numpy(), host)
+        self.host_blocked_s += time.perf_counter() - t0
+        self._check_correction()
+        self.harvests += 1
+        self._mark_resume()
+        return out, meta
+
+    def drain(self) -> list:
+        """Harvest every round in flight, in issue order; afterwards
+        :attr:`state` is the committed tail (a checkpoint's consistent
+        cut)."""
+        out = []
+        while self._inflight:
+            out.append(self.harvest())
+        return out
+
+    def reset(self, state: Any) -> None:
+        """Replace the state chain (the restore hook); refuses while rounds
+        are in flight."""
+        if self._inflight:
+            raise RuntimeError(
+                f"cannot reset with {len(self._inflight)} rounds in flight; drain first"
+            )
+        self._check_correction()
+        self._state = state
+        self._resume_t = None
+
+    def close(self) -> None:
+        """Drop the state chain and any in-flight histories (there is no
+        worker to stop); the pipeline must not be used afterwards."""
+        self._inflight.clear()
+        self._state = None
+        self._resume_t = None

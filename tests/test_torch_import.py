@@ -37,14 +37,18 @@ def test_port_imports_without_jax():
         "    importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20  # every module of the slice was imported
+    names = set(out.stdout.split())
+    assert len(names) >= 20  # every module of the slices was imported
+    for module in ("ckpt.checkpoint", "dist.faults", "dist.elastic", "dist.recovery",
+                   "dist.sharded_runtime", "pic.engine"):
+        assert f"repro_torch.{module}" in names, module
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
