@@ -73,6 +73,31 @@ Phases (any failure exits non-zero before the result line):
         rtol 1e-3 over steps 21-40); checkpoint bytes, snapshot and write
         times, restore time and intervals lost printed.
 
+  7. the activity-ledger strategy, the strong-scaling model, split-phase
+     stepping, BoxRuntime and the sharded FDTD:
+     a. ``Simulation`` at 1920² with ``cost_strategy="activity_ledger"``
+        and ``"work_counter"`` (cuda kernels, LB every 10 on 8 virtual
+        devices, 20 steps each, in turns ledger, counter, counter, ledger):
+        ms/step of the intervals (each holds a measurement round) and their
+        ratio, records per round, and the Pearson and Spearman correlation
+        of the per-box ledger costs (CUDA-event device time) with the work
+        counters of the same round; finite events, LB on round boundaries;
+     b. ``predicted_max_speedup`` for the first step's efficiency at x=0.91
+        and 1, and the ``VirtualCluster``-modelled speedup of LB over
+        ``lb_enabled=False`` with its ``fraction_of_predicted`` (a model);
+     c. ``ShardedRuntime(engine_backend="torch")`` on four logical devices
+        at 1920², ``overlap=False`` and ``True`` on the same steps (as many
+        as fit in about 60 s, measured first): fields within 1e-5·max, the
+        same census, ms/step of each; the ``interval_trace`` order check at
+        256²; ``engine_backend="cuda"`` with ``overlap=True`` must raise;
+     d. ``BoxRuntime`` on four logical devices: 3 steps at 1920² through an
+        adoption (ms and host dispatches per step); at 256² against
+        ``ShardedRuntime("torch")`` (fields within 1e-5·max, census exact)
+        and ``RecoveryRunner`` with device 1 killed against an
+        uninterrupted three-device run;
+     e. the block-sharded FDTD on 2x2 logical devices at 1920², 50 field
+        steps against the global step, within 1e-5·max.
+
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/repro_torch`` beside this file, it exits 2
@@ -1051,6 +1076,362 @@ def cross_checks() -> None:
         log(f"sharded: 256^2 {a} vs {b}: census {ca}, max rel field energy diff {rel:.3g}")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the activity-ledger strategy, the strong-scaling model,
+# split-phase stepping, BoxRuntime and the sharded FDTD
+# ---------------------------------------------------------------------------
+
+
+def _ranks(a):
+    """Ranks with ties averaged (for Spearman's correlation)."""
+    import numpy as np
+
+    order = np.argsort(a, kind="stable")
+    ranks = np.empty(len(a), np.float64)
+    ranks[order] = np.arange(len(a), dtype=np.float64)
+    for v in np.unique(a):
+        tie = a == v
+        ranks[tie] = ranks[tie].mean()
+    return ranks
+
+
+def _pearson(a, b) -> float:
+    import numpy as np
+
+    return float(np.corrcoef(np.asarray(a, np.float64), np.asarray(b, np.float64))[0, 1])
+
+
+def box_device_times(sim, reps: int = 3):
+    """Device time of the plain deposit of each (species, box) subset of
+    the current state, summed per box, with the host's issue hidden: a
+    sleep kernel holds the card while the launches queue, so the events
+    bracket device work only (median of ``reps``).  Returns the boxes and
+    their milliseconds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.pic.deposition import deposit_current
+
+    per_box = {}
+    for b, sub in sim.box_subsets():
+        times = []
+        for _ in range(reps + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(20_000_000)
+            start.record()
+            deposit_current(sub, sim.grid, sim.config.shape_order)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        per_box[b] = per_box.get(b, 0.0) + statistics.median(times[1:])
+    boxes = np.array(sorted(per_box))
+    return boxes, np.array([per_box[b] for b in boxes])
+
+
+def ledger_phase(record: dict, smi: str) -> dict:
+    """Phase 7a: ``activity_ledger`` against ``work_counter`` on the main
+    path (1920², cuda kernels, 8 virtual devices, LB every 10), 20 steps
+    each, in turns (ledger, counter, counter, ledger).  Returns the first
+    counter run, for 7b."""
+    import numpy as np
+    import torch
+
+    from repro_torch.pic import SimConfig, Simulation
+
+    runs = {"activity_ledger": [], "work_counter": []}
+    keep = None
+    for strategy in ("activity_ledger", "work_counter", "work_counter", "activity_ledger"):
+        sim = Simulation(full_width_problem(), SimConfig(
+            engine_backend="cuda", cost_strategy=strategy, lb_interval=10,
+            n_virtual_devices=8, strict_syncs=True,
+        ))
+        n_sp = len(sim.species)
+        torch.cuda.synchronize()
+        for fn in launch_counters().values():
+            fn.launches = 0
+        ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            sim.run(10)  # each interval opens with a measurement round
+            ms.append((time.perf_counter() - t0) * 1e3 / 10)
+        read_launches(record, 20 * n_sp, f"ledger: {strategy}")
+        if sim.history["lb_steps"] and not set(sim.history["lb_steps"]) <= {0, 10}:
+            raise AssertionError(f"ledger: {strategy}: lb_steps {sim.history['lb_steps']} off the rounds")
+        if [e.step for e in sim.balancer.events] != [0, 10]:
+            raise AssertionError(f"ledger: {strategy}: LB events at {[e.step for e in sim.balancer.events]}")
+        for e in sim.balancer.events:
+            if not (np.isfinite(e.current_efficiency) and np.isfinite(e.proposed_efficiency)):
+                raise AssertionError(f"ledger: {strategy}: non-finite event {e}")
+        if not np.isfinite(sim.history["field_energy"]).all():
+            raise AssertionError(f"ledger: {strategy}: non-finite energies")
+        runs[strategy].append(ms)
+        log(f"ledger: {strategy} ({smi}): {[round(m, 2) for m in ms]} ms/step per interval "
+            f"(each with one measurement round), lb_steps {sim.history['lb_steps']}, events "
+            f"{[(e.step, e.adopted, round(e.current_efficiency, 4), round(e.proposed_efficiency, 4)) for e in sim.balancer.events]}")
+        for rnd in sim.activity_rounds:
+            timed = rnd["box_s"] > 0
+            cost, work = rnd["box_s"][timed], rnd["work"][timed]
+            slope, icept = np.polyfit(work, cost * 1e3, 1)
+            log(f"ledger: round at step {rnd['step']}: {rnd['records']} records over {int(timed.sum())} boxes, "
+                f"{rnd['host_s'] * 1e3:.1f} ms on the host clock, summed event time "
+                f"{rnd['box_s'].sum() * 1e3:.2f} ms (per box min/median/max "
+                f"{cost.min() * 1e3:.3f}/{np.median(cost) * 1e3:.3f}/{cost.max() * 1e3:.3f} ms, fit "
+                f"{icept:.3f} ms + {slope * 1e6:.4f} ms per 1e6 work units); ledger cost vs work counter over "
+                f"those boxes: Pearson {_pearson(cost, work):.4f}, Spearman "
+                f"{_pearson(_ranks(cost), _ranks(work)):.4f}")
+        if strategy == "activity_ledger" and len(runs[strategy]) == 2:
+            # the same deposits with the host's issue time hidden: does the
+            # counter track the device time per box?
+            from repro_torch.pic.deposition import box_particle_counts, box_work_counters
+
+            boxes, dev_ms = box_device_times(sim)
+            counts = sum(box_particle_counts(p, sim.grid) for p in sim.species)
+            work = box_work_counters(counts, sim.grid).cpu().numpy()[boxes]
+            slope, icept = np.polyfit(work, dev_ms, 1)
+            log(f"ledger: device time per box of the same deposits with the host's issue hidden "
+                f"({len(boxes)} boxes, final state): min/median/max {dev_ms.min():.4f}/"
+                f"{np.median(dev_ms):.4f}/{dev_ms.max():.4f} ms, fit {icept:.4f} ms + "
+                f"{slope * 1e6:.4f} ms per 1e6 work units; vs work counter Pearson "
+                f"{_pearson(dev_ms, work):.4f}, Spearman {_pearson(_ranks(dev_ms), _ranks(work)):.4f}")
+        if strategy == "work_counter" and keep is None:
+            keep = sim
+        else:
+            del sim
+        torch.cuda.empty_cache()
+    for i in range(2):
+        led = [r[i] for r in runs["activity_ledger"]]
+        cnt = [r[i] for r in runs["work_counter"]]
+        log(f"ledger: interval {i}: activity_ledger {led} vs work_counter {cnt} ms/step, ratio of the means "
+            f"{statistics.mean(led) / statistics.mean(cnt):.3f} ({smi})")
+    return keep
+
+
+def perfmodel_phase(lb_sim, record: dict, smi: str) -> None:
+    """Phase 7b: the paper's Eq. 2 on the main path's first interval, and
+    the VirtualCluster model's speedup of LB over no LB (a model of
+    ``n_virtual_devices`` devices, not a measurement)."""
+    import torch
+
+    from repro_torch.core import fraction_of_predicted, imbalance_summary, predicted_max_speedup
+    from repro_torch.pic import SimConfig, Simulation
+
+    steps = len(lb_sim.history["efficiency"])
+    off = Simulation(full_width_problem(), SimConfig(
+        engine_backend="cuda", lb_enabled=False, lb_interval=10, n_virtual_devices=8,
+        strict_syncs=True,
+    ))
+    for fn in launch_counters().values():
+        fn.launches = 0
+    off.run(steps)
+    read_launches(record, steps * len(off.species), "perfmodel: lb_enabled=False")
+    e0 = imbalance_summary(off.history["max_over_avg"])["e0"]
+    speedup = off.modeled_walltime / lb_sim.modeled_walltime
+    log(f"perfmodel: E0 {e0:.4f} (first step, no LB); predicted max speedup (1/E0)^x: "
+        f"x=0.91 {predicted_max_speedup(e0, 0.91):.4f}, x=1 {predicted_max_speedup(e0, 1.0):.4f}")
+    log(f"perfmodel: VirtualCluster model over {steps} steps on 8 modelled devices (a model, not a "
+        f"measurement): LB {lb_sim.modeled_walltime:.6g} s vs no LB {off.modeled_walltime:.6g} s, "
+        f"modelled speedup {speedup:.4f}, fraction of predicted (x=0.91) "
+        f"{fraction_of_predicted(speedup, e0, 0.91):.4f}, lb_steps {lb_sim.history['lb_steps']} ({smi})")
+    del off
+    torch.cuda.empty_cache()
+
+
+def overlap_phase(smi: str) -> None:
+    """Phase 7c: split-phase stepping on four logical devices at 1920²
+    (plain tensor path), against the monolithic step on the same steps; the
+    interval_trace order check; the cuda backend must refuse overlap."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import ShardedRuntime, split_phase_order
+    from repro_torch.pic import laser_ion_problem
+
+    try:
+        ShardedRuntime(laser_ion_problem(nz=256, nx=256, box_cells=32, ppc=1, device="cuda"), 4,
+                       engine_backend="cuda", overlap=True)
+    except ValueError as e:
+        log(f"overlap: engine_backend='cuda' with overlap=True raises: {e}")
+    else:
+        raise AssertionError("overlap: engine_backend='cuda' with overlap=True did not raise")
+
+    kw = dict(engine_backend="torch", comm="neighbor", strict_syncs=True, improvement_threshold=10.0)
+    probe = ShardedRuntime(full_width_problem(), 4, lb_interval=10, **kw)
+    probe.run(1)  # the first step also pays the allocator's growth
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probe.run(1)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    del probe
+    torch.cuda.empty_cache()
+    # about 60 s for both runs; the split pays a second deposit sweep
+    fit = int(25.0 / step_s)
+    n = max(2, min(10, fit))
+    note = "a whole interval" if n == 10 else f"lb_interval cut to the {n} steps that fit"
+    log(f"overlap: plain path {step_s * 1e3:.1f} ms/step measured first; running {n} steps each ({note})")
+    out = {}
+    for overlap in (False, True):
+        rt = ShardedRuntime(full_width_problem(), 4, lb_interval=n, overlap=overlap, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rt.run(n)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        if rt.dropped_total or not np.isfinite(rt.history["field_energy"]).all():
+            raise AssertionError(f"overlap={overlap}: drops {rt.dropped_total} or non-finite energies")
+        out[overlap] = (np.stack([c.numpy() for c in rt.fields]), rt.total_alive())
+        log(f"overlap: overlap={overlap} on 4 logical devices at 1920^2 ({smi}): {ms:.1f} ms/step over {n} "
+            f"steps, census {rt.total_alive()}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del rt
+        torch.cuda.empty_cache()
+    (f_ser, n_ser), (f_ovl, n_ovl) = out[False], out[True]
+    rel = float(np.abs(f_ovl - f_ser).max() / max(np.abs(f_ser).max(), 1e-30))
+    if rel > 1e-5 or n_ovl != n_ser:
+        raise AssertionError(f"overlap: fields differ by {rel:.3g} of max, census {n_ovl} vs {n_ser}")
+    log(f"overlap: split-phase vs monolithic: max|dF|/max {rel:.3g}, census {n_ser} on both")
+
+    rt = ShardedRuntime(laser_ion_problem(nz=256, nx=256, box_cells=32, ppc=16, device="cuda"), 4,
+                        lb_interval=2, overlap=True, **kw)
+    spans = rt.interval_trace()
+    bad = split_phase_order(spans, 4)
+    if bad:
+        raise AssertionError(f"overlap: interval_trace order: {bad[:5]}")
+    log(f"overlap: interval_trace at 256^2 on 4 logical devices: {len(spans)} split-phase spans over "
+        f"2 steps, the window holds (interior between exchange start and done, folds after it)")
+    del rt
+    torch.cuda.empty_cache()
+
+
+def box_runtime_phase(smi: str) -> None:
+    """Phase 7d: BoxRuntime on four logical devices: a few steps at 1920²
+    through one adoption; at 256² against ShardedRuntime ("torch") and
+    RecoveryRunner with device 1 killed against an uninterrupted 3-device
+    run."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import (
+        BoxRuntime, Fault, FaultInjector, FaultSchedule, RecoveryRunner, ShardedRuntime,
+    )
+    from repro_torch.pic import laser_ion_problem
+
+    t0 = time.perf_counter()
+    rt = BoxRuntime(full_width_problem(), 4, lb_interval=2)
+    n0 = rt.total_alive()
+    log(f"box: setup {time.perf_counter() - t0:.1f} s at 1920^2 on 4 logical devices, caps {rt._caps}")
+    for i in range(3):
+        d0 = rt.host_dispatches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = rt.step()
+        torch.cuda.synchronize()
+        log(f"box: step {i}: {(time.perf_counter() - t0) * 1e3:.1f} ms, {rt.host_dispatches - d0} host "
+            f"dispatches, adopted {info['adopted']} ({smi})")
+        if i == 0 and not any(e.adopted for e in rt.balancer.events):
+            # no adoption of its own: force one (every box to the next device)
+            d0 = rt.host_dispatches
+            t0 = time.perf_counter()
+            rt.apply_mapping((np.asarray(rt.balancer.mapping) + 1) % 4)
+            torch.cuda.synchronize()
+            log(f"box: no adoption at step 0; forced one moving all {rt.grid.n_boxes} boxes to the next "
+                f"logical device: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+                f"{rt.host_dispatches - d0} host dispatches")
+    if rt.total_alive() != n0 or not np.isfinite(np.stack([c.cpu().numpy() for c in rt.fields])).all():
+        raise AssertionError(f"box: census {rt.total_alive()} vs {n0}, or non-finite fields")
+    log(f"box: 1920^2 events {[(e.step, e.adopted, e.boxes_moved) for e in rt.balancer.events]}, "
+        f"devices in use {rt.devices_in_use()}, census {rt.total_alive()}")
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def small():
+        return laser_ion_problem(nz=256, nx=256, box_cells=32, ppc=16, device="cuda")
+
+    box = BoxRuntime(small(), 4, lb_interval=10)
+    box.run(10)
+    sh = ShardedRuntime(small(), 4, lb_interval=10, engine_backend="torch", strict_syncs=True)
+    sh.run(10)
+    f_box = np.stack([c.numpy() for c in box.fields])
+    f_sh = np.stack([c.numpy() for c in sh.fields])
+    rel = float(np.abs(f_box - f_sh).max() / max(np.abs(f_sh).max(), 1e-30))
+    if rel > 1e-5 or box.total_alive() != sh.total_alive():
+        raise AssertionError(f"box: vs sharded {rel:.3g} of max, census {box.total_alive()} vs {sh.total_alive()}")
+    log(f"box: 256^2 BoxRuntime vs ShardedRuntime(torch), 10 steps on 4 logical devices: max|dF|/max "
+        f"{rel:.3g}, census {sh.total_alive()} on both")
+    del box, sh
+
+    ckpt_dir = ROOT / "chip_scratch" / "box_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def make(k):
+        return BoxRuntime(small(), k, lb_interval=2)
+
+    inj = FaultInjector(FaultSchedule([Fault("kill_device", interval=2, device=1)]))
+    t0 = time.perf_counter()
+    runner = RecoveryRunner(make, 4, ckpt_dir=ckpt_dir, keep=2, injector=inj)
+    runner.run(8)
+    wall = time.perf_counter() - t0
+    restores = [e for e in runner.events if e["kind"] == "restore"]
+    if len(restores) != 1 or restores[0]["ckpt_step"] != 4 or runner.n_devices_active != 3:
+        raise AssertionError(f"box: recovery events {runner.events}")
+    ref = make(3)
+    ref.run(8)
+    got = runner.runtime
+    rel = float(np.abs(np.stack([c.numpy() for c in got.fields]) - np.stack([c.numpy() for c in ref.fields])).max()
+                / max(float(np.abs(np.stack([c.numpy() for c in ref.fields])).max()), 1e-30))
+    if rel > 1e-5 or got.total_alive() != ref.total_alive():
+        raise AssertionError(f"box: recovered vs uninterrupted {rel:.3g}, census {got.total_alive()} vs {ref.total_alive()}")
+    log(f"box: RecoveryRunner 4 -> 3 logical devices at 256^2: {wall:.1f} s for 8 steps, restore of step "
+        f"{restores[0]['ckpt_step']} in {restores[0]['restore_s']:.2f} s; matches an uninterrupted 3-device "
+        f"run: max|dF|/max {rel:.3g}, census {ref.total_alive()}")
+    del runner, got, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def sharded_fdtd_phase(smi: str) -> None:
+    """Phase 7e: the block-sharded FDTD on 2x2 logical devices at 1920²,
+    50 field steps, against the global field step."""
+    import torch
+
+    from repro_torch.pic import Grid2D
+    from repro_torch.pic.fields import Fields, step_b_half, step_e
+    from repro_torch.pic.sharded import make_sharded_fdtd_step
+
+    grid = Grid2D(nz=1920, nx=1920, dz=0.274, dx=0.274, box_nz=64, box_nx=64)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    f0 = [torch.randn(grid.shape, generator=gen, device="cuda") for _ in range(6)]
+    j = [0.1 * torch.randn(grid.shape, generator=gen, device="cuda") for _ in range(3)]
+    step, sh = make_sharded_fdtd_step(grid, [["cuda", "cuda"], ["cuda", "cuda"]])
+    fb = Fields(*(sh.split(c) for c in f0))
+    jb = tuple(sh.split(c) for c in j)
+    ref = Fields(*f0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        fb = step(fb, jb)
+    torch.cuda.synchronize()
+    ms_sh = (time.perf_counter() - t0) * 1e3 / 50
+    t0 = time.perf_counter()
+    for _ in range(50):
+        ref = step_b_half(step_e(step_b_half(ref, grid), j, grid), grid)
+    torch.cuda.synchronize()
+    ms_ref = (time.perf_counter() - t0) * 1e3 / 50
+    err = max(float((sh.join(b) - r).abs().max()) for b, r in zip(fb, ref))
+    scale = max(float(r.abs().max()) for r in ref)
+    if not err <= 1e-5 * scale:
+        raise AssertionError(f"fdtd: 2x2 blocks vs global: max|dF| {err:.3g}, max {scale:.3g}")
+    log(f"fdtd: 2x2 logical devices at 1920^2, 50 field steps: max|dF|/max {err / scale:.3g}; "
+        f"{ms_sh:.2f} ms/step sharded vs {ms_ref:.2f} global ({smi})")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").exists():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
@@ -1135,6 +1516,13 @@ def main() -> int:
     sharded_phase(record)
     async_phase(record, smi)
     recovery_phase(record, smi)
+    lb_sim = ledger_phase(record, smi)
+    perfmodel_phase(lb_sim, record, smi)
+    del lb_sim
+    torch.cuda.empty_cache()
+    overlap_phase(smi)
+    box_runtime_phase(smi)
+    sharded_fdtd_phase(smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

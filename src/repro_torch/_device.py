@@ -12,7 +12,14 @@ from typing import Any, Callable, Iterator, Optional, Union
 import numpy as np
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device", "sync_free_region", "to_device", "map_tensors"]
+__all__ = [
+    "DEFAULT_DEVICE",
+    "CudaEventClock",
+    "resolve_device",
+    "sync_free_region",
+    "to_device",
+    "map_tensors",
+]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -67,3 +74,29 @@ def map_tensors(fn: Callable, tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(map_tensors(fn, v) for v in tree)
     return tree
+
+
+class CudaEventClock:
+    """Device timestamps for ``ActivityLedger``: each reading records a CUDA
+    event on the current stream, waits for it, and returns its time in
+    seconds since the origin event that :meth:`reset` recorded.  An event
+    pair around a launch is the direct analogue of a CUPTI activity
+    record's start and end; the wait is the host synchronisation the
+    paper's CUPTI strategy pays for."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._origin: Optional[torch.cuda.Event] = None
+
+    def reset(self) -> None:
+        """Record the origin event (the start of a measurement round)."""
+        self._origin = torch.cuda.Event(enable_timing=True)
+        self._origin.record(torch.cuda.current_stream(self.device))
+
+    def __call__(self) -> float:
+        if self._origin is None:
+            self.reset()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        ev.synchronize()
+        return self._origin.elapsed_time(ev) / 1e3

@@ -153,11 +153,17 @@ class ActivityLedger:
     callbacks — reproducing the request/deliver buffer flow of the paper's
     Fig. 2(b).  The measured overhead of this strategy (host sync per box) is
     what reproduces the paper's "CUPTI is ~2x slower" finding.
+
+    ``clock`` is the one hook on where timestamps come from: a callable
+    returning seconds, read once when :meth:`timed` enters and once when
+    it exits (default ``time.perf_counter``).  The port's ``Simulation``
+    passes a CUDA-event clock on a GPU; tests inject a deterministic one.
     """
 
-    def __init__(self, buffer_records: int = 256):
+    def __init__(self, buffer_records: int = 256, clock: Callable[[], float] = time.perf_counter):
         if buffer_records <= 0:
             raise ValueError("buffer_records must be positive")
+        self.clock = clock
         self._buffer_records = buffer_records
         self._buffer: List[ActivityRecord] = []
         self._callbacks: List[Callable[[List[ActivityRecord]], None]] = []
@@ -185,11 +191,11 @@ class ActivityLedger:
             self._ledger, self._name, self._box = ledger, name, box
 
         def __enter__(self):
-            self._start = time.perf_counter()
+            self._start = self._ledger.clock()
             return self
 
         def __exit__(self, *exc):
-            self._ledger.record(self._name, self._box, self._start, time.perf_counter())
+            self._ledger.record(self._name, self._box, self._start, self._ledger.clock())
             return False
 
     def timed(self, name: str, box: int) -> "ActivityLedger._Timed":

@@ -1,15 +1,26 @@
-"""The sharded production runtime and what it is built from (counterpart of
-``repro.dist``; both pipelines, ``overlap=False``).
+"""The distributed PIC runtimes and what they are built from (counterpart
+of ``repro.dist``).
 
 ``ShardedRuntime`` steps box slots over a ring of logical devices, one
 device-resident loop and one history fetch per LB interval, with the
-neighbour or ring collectives of ``collectives`` between the phases.
-``recovery.RecoveryRunner`` makes it crash-safe with checkpoints
+neighbour or ring collectives of ``collectives`` between the phases (both
+pipelines; ``overlap=True`` splits each step around the current fold).
+``BoxRuntime`` is the host-driven validation runtime: one dispatch per box
+per step, each box's state on its own logical device.
+``recovery.RecoveryRunner`` makes either crash-safe with checkpoints
 (``repro_torch.ckpt``), seeded faults (``faults``) and the elastic device
-set (``elastic``).  ``BoxRuntime`` and ``sharding`` are not ported yet
-(ROADMAP queue 1).
+set (``elastic``).  ``sharding`` serves only the LM stack and is not ported
+yet (ROADMAP queue 1, slice C).
 """
-from .collectives import neighbor_exchange, neighbor_reduce, ring_all_gather
+from .box_runtime import BoxRuntime
+from .collectives import (
+    NeighborExchangeHandle,
+    neighbor_exchange,
+    neighbor_exchange_done,
+    neighbor_exchange_start,
+    neighbor_reduce,
+    ring_all_gather,
+)
 from .elastic import DeviceSet, ElasticRunner
 from .faults import (
     CorruptState,
@@ -32,11 +43,13 @@ from .runtime_api import (
     validate_engine_backend,
     validate_pipeline,
 )
-from .sharded_runtime import ShardedRuntime
+from .sharded_runtime import ShardedRuntime, split_phase_order
 from .straggler import StragglerDetector
 
 __all__ = [
+    "BoxRuntime",
     "ShardedRuntime",
+    "split_phase_order",
     "StragglerDetector",
     "StragglerLoop",
     "DeviceSet",
@@ -61,4 +74,7 @@ __all__ = [
     "ring_all_gather",
     "neighbor_exchange",
     "neighbor_reduce",
+    "NeighborExchangeHandle",
+    "neighbor_exchange_start",
+    "neighbor_exchange_done",
 ]

@@ -15,9 +15,10 @@ copy on the current stream.  Nothing here waits for the device.
     path (``comm="neighbor"``): each device sends one payload per ring
     offset; offset ``o`` carries device ``d``'s payload to device
     ``(d + o) % n``.
-
-``neighbor_exchange_start``/``_done`` (split-phase overlap) are not ported
-yet.
+  * :func:`neighbor_exchange_start` / :func:`neighbor_exchange_done` — the
+    same exchange split into issue and finish, so the caller can issue work
+    that does not depend on it (split-phase stepping's interior deposit)
+    in between.
 """
 from __future__ import annotations
 
@@ -25,7 +26,14 @@ from typing import Callable, Dict, List, Sequence
 
 import torch
 
-__all__ = ["ring_all_gather", "neighbor_exchange", "neighbor_reduce"]
+__all__ = [
+    "ring_all_gather",
+    "neighbor_exchange",
+    "neighbor_reduce",
+    "NeighborExchangeHandle",
+    "neighbor_exchange_start",
+    "neighbor_exchange_done",
+]
 
 
 def _tree_map(fn: Callable, tree):
@@ -103,3 +111,31 @@ def neighbor_reduce(
             acc = fold_fn(acc, o, arrivals[d][o], d)
         out.append(acc)
     return out
+
+
+class NeighborExchangeHandle:
+    """An issued neighbour exchange: the arrivals of every device, whose
+    copies are queued on the stream.  Work issued between
+    :func:`neighbor_exchange_start` and :func:`neighbor_exchange_done` that
+    does not read them is independent of the exchange."""
+
+    __slots__ = ("arrivals",)
+
+    def __init__(self, arrivals: List[Dict[int, object]]):
+        self.arrivals = arrivals
+
+
+def neighbor_exchange_start(payloads_by_device: Sequence[Dict[int, object]]) -> NeighborExchangeHandle:
+    """Issue the directional copies of :func:`neighbor_exchange` (the same
+    contract) and return at once; nothing waits.  The reference also pins
+    the phase boundary with an XLA optimization barrier; eager PyTorch
+    issues in program order, so the interior work issued next already sits
+    between the copies and :func:`neighbor_exchange_done`."""
+    return NeighborExchangeHandle(neighbor_exchange(payloads_by_device))
+
+
+def neighbor_exchange_done(handle: NeighborExchangeHandle) -> List[Dict[int, object]]:
+    """Finish a :func:`neighbor_exchange_start`: ``arrivals[r][o]`` is the
+    payload device ``(r - o) % n`` addressed to device ``r``.  Stream order
+    makes the copies complete before any later use of them."""
+    return handle.arrivals

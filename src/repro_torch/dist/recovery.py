@@ -1,10 +1,11 @@
-"""Checkpointed elastic recovery for the sharded runtime (counterpart of
+"""Checkpointed elastic recovery for the interval runtimes (counterpart of
 ``repro.dist.recovery``).
 
-``RecoveryRunner`` wraps ``repro_torch.dist.ShardedRuntime``, under
-``pipeline="sync"`` or ``"async"``, and makes it crash-safe at LB-interval
-granularity.  The reference also wraps its ``BoxRuntime``; that half waits
-for the port of ``BoxRuntime`` (ROADMAP queue 1, item 10).
+``RecoveryRunner`` wraps either runtime (``repro_torch.dist.BoxRuntime`` or
+``ShardedRuntime``, ``pipeline="sync"`` or ``"async"``) and makes it
+crash-safe at LB-interval granularity.  The ladder's tighter-packs rung
+needs the sharded runtime's emigrant-pack tables; over a ``BoxRuntime`` it
+is skipped, as in the reference.
 
   * **Interval-consistent checkpointing** — after every ``ckpt_every``-th
     committed interval the runtime's :meth:`snapshot` (which flushes the

@@ -1,8 +1,8 @@
 """The sharded production runtime: slot-major box state over a ring of
 logical devices, one device-resident loop per LB interval, one fetch.
 
-Counterpart of ``repro.dist.sharded_runtime`` (both pipelines,
-``overlap=False``).  The reference is single-controller: one ``shard_map``
+Counterpart of ``repro.dist.sharded_runtime`` (both pipelines, both
+``overlap`` modes).  The reference is single-controller: one ``shard_map``
 program over a device mesh, whose collectives are ``ppermute`` hops.  The
 port keeps that design with *logical devices*: a ``ShardedRuntime`` holds
 one slot stack per logical device, each on its own ``torch.device``
@@ -63,11 +63,26 @@ is that of ``"sync"``; still one device->host sync per interval, now on
 that round's event.  ``flush()`` drains the pipeline, and the observability
 accessors and ``snapshot()`` flush first.
 
-Not ported yet: ``overlap=True`` (raises ``NotImplementedError``) and
-``interval_hlo``.
+``overlap=True`` splits each step's particle phase (either ``comm``
+mode), as the reference does: advance every particle and deposit only the
+*frontier* (particles whose post-move cell can reach a sent fold strip,
+``pic.boxes.frontier_cell_mask``), issue the fold strips
+(``collectives.neighbor_exchange_start``, or the ring all-gather), deposit
+the *interior* (which cannot touch a sent strip) while they travel, and
+fold the arrivals in only after it (``neighbor_exchange_done``).  The
+physics is the monolithic step's to f32 rounding; the price is a second
+masked deposit sweep.  Split-phase masking exists only in the plain tensor
+path, so ``engine_backend="cuda"`` with ``overlap=True`` raises, as the
+reference's ``"pallas"`` does.  :meth:`ShardedRuntime.interval_trace`
+(the counterpart of the reference's ``interval_hlo``) runs one interval
+under ``torch.profiler`` with a span around each of those phases, and
+:func:`split_phase_order` checks the window on it: the order of issue, not
+measured overlap (on one card ``.to()`` between logical devices copies
+nothing, so there is nothing to overlap there).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -83,18 +98,31 @@ from ..launch.mesh import make_box_mesh, slot_home_devices
 from ..pic.boxes import (
     BoxDecomposition,
     box_slot_layout,
+    frontier_cell_mask,
     halo_strip_tables,
     interior_cell_map,
     padded_cell_map,
 )
 from ..pic.deposition import box_work_counters
-from ..pic.engine import IntervalPipeline, field_phase_stacked, particle_phase_stacked
+from ..pic.engine import (
+    IntervalPipeline,
+    field_phase_stacked,
+    particle_phase_stacked,
+    particle_phase_stacked_frontier,
+    particle_phase_stacked_interior,
+)
 from ..pic.fields import Fields, make_sponge
 from ..pic.grid import Grid2D
 from ..pic.particles import Particles
 from ..pic.problem import ProblemSetup
 from .box_runtime import _MIN_HALO, _np_box_ids, _round_up
-from .collectives import neighbor_exchange, neighbor_reduce, ring_all_gather
+from .collectives import (
+    neighbor_exchange,
+    neighbor_exchange_done,
+    neighbor_exchange_start,
+    neighbor_reduce,
+    ring_all_gather,
+)
 from .runtime_api import (
     _StragglerMixin,
     restore_balancer,
@@ -103,7 +131,7 @@ from .runtime_api import (
     validate_pipeline,
 )
 
-__all__ = ["ShardedRuntime"]
+__all__ = ["ShardedRuntime", "split_phase_order"]
 
 #: particle-buffer float fields travelling through the emigration exchange
 _PKEYS = ("z", "x", "ux", "uy", "uz", "w")
@@ -158,7 +186,9 @@ class ShardedRuntime(_StragglerMixin):
     comm:         ``"neighbor"`` (default): guard strips and
                   destination-aware emigrant packs over directional hops;
                   ``"ring"``: the all-gather reference path.
-    overlap:      only ``False`` (split-phase stepping is not ported yet).
+    overlap:      ``False`` (default): the monolithic step.  ``True``:
+                  split-phase stepping (module docstring); needs
+                  ``engine_backend="torch"``.
     pipeline:     ``"sync"`` (default) or ``"async"`` (double-buffered
                   intervals, adoption one interval late).
     engine_backend: ``"cuda"`` (default) runs ``kernels.ops.
@@ -228,19 +258,20 @@ class ShardedRuntime(_StragglerMixin):
             )
         if comm not in ("ring", "neighbor"):
             raise ValueError(f"comm must be 'ring' or 'neighbor', got {comm!r}")
-        if overlap:
-            raise NotImplementedError(
-                "overlap=True (split-phase stepping) is not ported yet; see "
-                "ROADMAP.md queue 1, 'overlap=True'"
-            )
         self.grid = grid
         self.laser = problem.laser
         self.decomp = BoxDecomposition(grid)
         self.halo = halo
         self.comm = comm
-        self.overlap = False
+        self.overlap = bool(overlap)
         self.pipeline = validate_pipeline(pipeline)
         self.engine_backend = validate_engine_backend(engine_backend)
+        if self.engine_backend == "cuda" and self.overlap:
+            raise ValueError(
+                "engine_backend='cuda' does not compose with overlap=True: "
+                "split-phase frontier/interior deposit masking exists only in "
+                "the plain tensor particle phase (engine_backend='torch')"
+            )
         if self.engine_backend == "cuda" and shape_order != 3:
             raise ValueError(
                 "engine_backend='cuda' supports shape_order=3 only (the kernels "
@@ -254,6 +285,8 @@ class ShardedRuntime(_StragglerMixin):
         self.adaptive_mig = bool(adaptive_mig)
         self.mig_patience = int(mig_patience)
         self.strict_syncs = bool(strict_syncs)
+        #: record_function spans around the split phases (interval_trace)
+        self._tracing = False
         self.t = 0.0
         self.step_idx = 0
         #: host dispatches (interval loops launched + host->device commits)
@@ -311,6 +344,7 @@ class ShardedRuntime(_StragglerMixin):
             sx = slice(bx * grid.box_nx, bx * grid.box_nx + pnx)
             statics.append(np.stack([sponge_g[sz, sx], prof_g[sz, sx]]))
         self._statics = np.stack(statics).astype(np.float32)  # (n_boxes, 2, pn, pn)
+        self._frontier = frontier_cell_mask(grid, halo, shape_order) if self.overlap else None
 
         # -- locality curve + initial slot assignment + state commit ------
         self._curve = (
@@ -451,6 +485,8 @@ class ShardedRuntime(_StragglerMixin):
                 "m": np.array([m for _, m in self._qm], np.float32),
                 **strips[d],
             }
+            if self._frontier is not None:
+                tab["frontier"] = self._frontier
             if self.comm == "ring":
                 tab["my_cmap"] = self._cell_map[boxes].reshape(-1)
                 tab["cmap_all"] = self._cell_map[self._slot_box].reshape(-1)
@@ -897,16 +933,79 @@ class ShardedRuntime(_StragglerMixin):
             results.append((out, alive, dropped_c + dropped_e[d], demands[d].to(torch.int32)))
         return results
 
+    def _span(self, name: str):
+        """A ``torch.profiler`` span while :meth:`interval_trace` records,
+        else nothing."""
+        if self._tracing:
+            return torch.profiler.record_function(name)
+        return contextlib.nullcontext()
+
+    def _split_phase_fold(self, sp2, jF, flags) -> List[torch.Tensor]:
+        """Split-phase current fold: send the frontier deposits' strips, run
+        the interior deposit while they travel, fold the arrivals in after
+        it.  Returns the folded ``(bpd, 3, pnz, pnx)`` currents per device."""
+        bpd, pnz, pnx = self._bpd, self.local_grid.nz, self.local_grid.nx
+        n_dev = self.n_devices
+
+        def interior(d):
+            with self._span(f"split_phase:interior:d{d}"):
+                return particle_phase_stacked_interior(
+                    sp2[d], self._dev[d]["origins"], self.local_grid,
+                    shape_order=self.shape_order, frontier_flags=flags[d],
+                )
+
+        if self.comm == "ring":
+            with self._span("split_phase:exchange_start"):
+                j_all = ring_all_gather(jF)  # (S, 3, pn, pn)
+            jI = [interior(d) for d in range(n_dev)]
+            with self._span("split_phase:exchange_done"):
+                pass  # the gathered frontier deposits are read from here on
+            out = []
+            for d, tab in enumerate(self._dev):
+                with self._span(f"split_phase:fold:d{d}"):
+                    g = torch.zeros((3, self.grid.n_cells), dtype=torch.float32, device=j_all[d].device)
+                    g.index_add_(1, tab["cmap_all"], j_all[d].transpose(0, 1).reshape(3, -1))
+                    # interior deposits sit >= halo inside their own box,
+                    # out of every other frame's view: a local add suffices
+                    out.append(g[:, tab["my_cmap"]].view(3, bpd, pnz, pnx).transpose(0, 1) + jI[d])
+            return out
+        payloads = []
+        for d, tab in enumerate(self._dev):
+            flat = jF[d].transpose(0, 1).reshape(-1)  # channel-major
+            payloads.append({o: flat[tab[f"fold_send_{o}"]] for o in self._offsets})
+        with self._span("split_phase:exchange_start"):
+            handle = neighbor_exchange_start(payloads)
+        accs = [(jF[d] + interior(d)).transpose(0, 1).contiguous() for d in range(n_dev)]
+        with self._span("split_phase:exchange_done"):
+            arrivals = neighbor_exchange_done(handle)
+        fold = self._strip_fold("fold")
+        out = []
+        for d, acc in enumerate(accs):
+            with self._span(f"split_phase:fold:d{d}"):
+                for o in sorted(arrivals[d]):
+                    acc = fold(acc, o, arrivals[d][o], d)
+            out.append(acc.transpose(0, 1))
+        return out
+
     def _step(self, tiles, species, t):
         """One step on every device; returns the new state and the step's
         per-device history rows."""
         n_dev = self.n_devices
         padded = self._halo_paste(tiles)
-        sp2, j3, counts, work = [], [], [], []
+        sp2, j3, counts, work, flags = [], [], [], [], []
         for d in range(n_dev):
             tab = self._dev[d]
             sp_in = tuple(self._particles(d, sp, s) for s, sp in enumerate(species[d]))
-            if self.engine_backend == "cuda":
+            if self.overlap:
+                with self._span(f"split_phase:frontier:d{d}"):
+                    out_sp, j, c, fl = particle_phase_stacked_frontier(
+                        padded[d], sp_in, tab["origins"], self.local_grid,
+                        domain_grid=self.grid, shape_order=self.shape_order,
+                        frontier_mask=tab["frontier"],
+                    )
+                flags.append(fl)
+                w = box_work_counters(c, self.grid)
+            elif self.engine_backend == "cuda":
                 out_sp, j, c, w = particle_phase_slots(
                     padded[d], sp_in, tab["origins"], self.local_grid, domain_grid=self.grid
                 )
@@ -920,7 +1019,7 @@ class ShardedRuntime(_StragglerMixin):
             j3.append(j)
             counts.append(c)
             work.append(w)
-        jp = self._current_fold(j3)
+        jp = self._split_phase_fold(sp2, j3, flags) if self.overlap else self._current_fold(j3)
         new_tiles = [
             field_phase_stacked(
                 padded[d], jp[d], self._dev[d]["statics"], t[d], self.local_grid,
@@ -1047,6 +1146,36 @@ class ShardedRuntime(_StragglerMixin):
             "fetch_s": self._host_s["fetch"],
             "balance_s": self._host_s["balance"],
         }
+
+    def interval_trace(self, n_steps: Optional[int] = None) -> List[Tuple[str, float, float]]:
+        """Run (and commit) the next ``n_steps`` steps (default one LB
+        interval) under ``torch.profiler`` and return the split-phase spans
+        they issued, ``(name, start_us, end_us)`` in issue order: per step,
+        ``split_phase:frontier:d{d}`` per device, one
+        ``split_phase:exchange_start``, ``split_phase:interior:d{d}`` per
+        device, one ``split_phase:exchange_done`` and
+        ``split_phase:fold:d{d}`` per device.  The counterpart of the
+        reference's ``interval_hlo``: a compiled program can be inspected
+        without running, an eager one only by running it, so this advances
+        the runtime.  :func:`split_phase_order` checks the result; a
+        monolithic runtime (``overlap=False``) issues no such spans."""
+        from torch.profiler import ProfilerActivity, profile
+
+        self.flush()
+        n = int(n_steps) if n_steps else max(1, self.lb_interval)
+        self._tracing = True
+        try:
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                self.run(n)
+                self.flush()
+        finally:
+            self._tracing = False
+        spans = [
+            (e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()
+            if e.name.startswith("split_phase:") and e.device_type == torch.autograd.DeviceType.CPU
+        ]
+        return sorted(spans, key=lambda sp: sp[1])
 
     def _run_piece(self, n_steps: int) -> None:
         """Issue one interval piece under the current mapping, then harvest
@@ -1394,3 +1523,40 @@ class ShardedRuntime(_StragglerMixin):
                 bx * grid.box_nx : (bx + 1) * grid.box_nx,
             ] = tiles[s]
         return Fields(*(torch.from_numpy(c.copy()) for c in out))
+
+
+def split_phase_order(spans: Sequence[Tuple[str, float, float]], n_devices: int) -> List[str]:
+    """Check the split-phase window on an :meth:`ShardedRuntime.
+    interval_trace`: for every step and device the interior deposit is
+    issued after the step's exchange start has returned and ends before its
+    exchange done begins, and no arrival is folded before that device's
+    interior deposit has been issued.  Returns the violations (empty when
+    the window holds); a trace without split-phase spans is one."""
+    by_name: Dict[str, List[Tuple[float, float]]] = {}
+    for name, start, end in spans:
+        by_name.setdefault(name, []).append((start, end))
+    starts = by_name.get("split_phase:exchange_start", [])
+    dones = by_name.get("split_phase:exchange_done", [])
+    if not starts:
+        return ["the trace holds no split-phase spans"]
+    out = []
+    if len(dones) != len(starts):
+        out.append(f"{len(starts)} exchange starts but {len(dones)} exchange dones")
+    for d in range(n_devices):
+        frontier = by_name.get(f"split_phase:frontier:d{d}", [])
+        interior = by_name.get(f"split_phase:interior:d{d}", [])
+        fold = by_name.get(f"split_phase:fold:d{d}", [])
+        if not (len(frontier) == len(interior) == len(fold) == len(starts)):
+            out.append(f"device {d}: {len(frontier)} frontier, {len(interior)} interior, "
+                       f"{len(fold)} fold spans for {len(starts)} steps")
+            continue
+        for i, (st, dn, fr, it, fo) in enumerate(zip(starts, dones, frontier, interior, fold)):
+            if not fr[1] <= st[0]:
+                out.append(f"step {i} device {d}: frontier deposit not done before the exchange start")
+            if not st[1] <= it[0]:
+                out.append(f"step {i} device {d}: interior deposit issued before the exchange start returned")
+            if not it[1] <= dn[0]:
+                out.append(f"step {i} device {d}: interior deposit ends after the exchange done begins")
+            if not it[1] <= fo[0]:
+                out.append(f"step {i} device {d}: an arrival folded before the interior deposit was issued")
+    return out

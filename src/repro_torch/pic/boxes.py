@@ -6,9 +6,8 @@ exist there as an accounting structure: cost measurement, distribution
 mapping, data volumes.  The sharded runtime (``repro_torch.dist``) keeps one
 halo-padded tile per box, and the numpy tables below (copies of the
 reference's) say which cell goes where: the slice plans of the halo paste
-and fold, dense cell maps, per-direction strip tables, the slot curve and
-the 9-point neighbourhood.  ``frontier_cell_mask`` (split-phase stepping)
-is not ported yet.
+and fold, dense cell maps, per-direction strip tables, the frontier cells
+of split-phase stepping, the slot curve and the 9-point neighbourhood.
 """
 from __future__ import annotations
 
@@ -29,6 +28,7 @@ __all__ = [
     "HALO_DIRS",
     "HaloStripTables",
     "halo_strip_tables",
+    "frontier_cell_mask",
     "box_slot_layout",
 ]
 
@@ -231,6 +231,51 @@ def halo_strip_tables(grid: Grid2D, halo: int) -> HaloStripTables:
         fold_src=tuple(fold_src),
         fold_dst=tuple(fold_dst),
     )
+
+
+def frontier_cell_mask(grid: Grid2D, halo: int, shape_order: int = 3) -> np.ndarray:
+    """Padded-tile cells whose particles the halo exchange depends on.
+
+    Bool ``(pnz, pnx)`` over the halo-padded tile frame: ``True`` marks
+    **frontier** cells, where a particle's post-move cell lets it deposit
+    into a cell the fold strips send to a neighbour (so its deposit must be
+    done before the strips are sent); ``False`` marks **interior** cells,
+    whose deposits cannot touch any sent strip: the split-phase step's
+    window.  The union of :func:`halo_strip_tables`' ``fold_src`` cells,
+    dilated by the deposit reach of ``shape_order`` (a particle in cell
+    ``c`` writes ``[c - r, c + r]`` per axis, ``r = SUPPORT[order] // 2``),
+    plus every guard cell.  Boxes too small to hold an interior band give
+    an all-True mask: split-phase stepping then degenerates to the
+    monolithic step.
+    """
+    from .shapes import SUPPORT
+
+    if shape_order not in SUPPORT:
+        raise ValueError(f"unsupported shape order {shape_order}; expected 1 or 3")
+    reach = SUPPORT[shape_order] // 2
+    tables = halo_strip_tables(grid, halo)
+    pnz, pnx = grid.box_nz + 2 * halo, grid.box_nx + 2 * halo
+    sent = np.zeros(pnz * pnx, bool)
+    for fs in tables.fold_src:
+        sent[fs] = True
+    mask = sent.reshape(pnz, pnx).copy()
+    # dilate by the reach, axis by axis (a Chebyshev ball)
+    for _ in range(reach):
+        grown = mask.copy()
+        grown[1:, :] |= mask[:-1, :]
+        grown[:-1, :] |= mask[1:, :]
+        mask = grown
+    for _ in range(reach):
+        grown = mask.copy()
+        grown[:, 1:] |= mask[:, :-1]
+        grown[:, :-1] |= mask[:, 1:]
+        mask = grown
+    # off-interior particles are mid-migration: always frontier
+    mask[:halo, :] = True
+    mask[-halo:, :] = True
+    mask[:, :halo] = True
+    mask[:, -halo:] = True
+    return mask
 
 
 def box_slot_layout(grid: Grid2D, order: str = "morton") -> np.ndarray:

@@ -13,6 +13,11 @@ more often than that.
   * :func:`particle_phase_stacked` / :func:`field_phase_stacked` — the same
     two halves over a stack of box slots ``(slots, ...)`` at once, as
     batched tensor code (no loop over slots): the sharded runtime's step.
+  * :func:`particle_phase_stacked_frontier` /
+    :func:`particle_phase_stacked_interior` — the same particle phase split
+    in two for split-phase stepping (``ShardedRuntime(overlap=True)``):
+    advance everything and deposit only the frontier, then deposit the
+    rest without recomputing any physics.
   * :func:`build_step_body` — one step as ``(fields, species, t) ->
     (fields, species, StepOutputs)``.  ``engine_backend="cuda"`` routes the
     particle phase through the binned kernels and threads their in-kernel
@@ -56,6 +61,8 @@ __all__ = [
     "particle_phase",
     "field_phase",
     "particle_phase_stacked",
+    "particle_phase_stacked_frontier",
+    "particle_phase_stacked_interior",
     "field_phase_stacked",
     "build_step_body",
     "make_interval_fn",
@@ -247,6 +254,85 @@ def particle_phase_stacked(
         j3 = j3 + _deposit_stacked(p._replace(z=p.z - oz, x=p.x - ox), local_grid, shape_order)
         counts = counts + p.alive.sum(1).to(torch.float32)
     return tuple(out_species), j3, counts
+
+
+def _frontier_flag(p: Particles, oz, ox, grid: Grid2D, mask: torch.Tensor) -> torch.Tensor:
+    """Whether each particle's post-move cell lies on the frontier.
+
+    ``mask`` is the padded-tile bool map of ``pic.boxes.frontier_cell_mask``
+    and ``oz``/``ox`` the ``(slots, 1)`` tile origins; the cell lookup is
+    clipped to the tile, so a particle observed outside it (mid-migration,
+    or parked dead padding) classifies through the boundary cells, which
+    are frontier by construction."""
+    cz = torch.clamp((p.z - oz) / grid.dz, 0.0, grid.nz - 1).to(torch.int32)
+    cx = torch.clamp((p.x - ox) / grid.dx, 0.0, grid.nx - 1).to(torch.int32)
+    return mask.reshape(-1)[cz * grid.nx + cx]
+
+
+def particle_phase_stacked_frontier(
+    tiles6: torch.Tensor,
+    species: Tuple[Particles, ...],
+    origins: torch.Tensor,
+    local_grid: Grid2D,
+    *,
+    domain_grid: Grid2D,
+    shape_order: int = 3,
+    frontier_mask: torch.Tensor,
+):
+    """Frontier half of the split-phase step: advance everything, deposit
+    only what the halo exchange depends on.
+
+    The same gather + Boris push + move as :func:`particle_phase_stacked`
+    for **all** particles, but the deposit masks to particles whose
+    post-move cell is on the frontier (``frontier_mask``): exactly the
+    deposits the fold strips can see, so the strips can be sent from the
+    returned ``j3`` before any interior work.  Masking zeroes the deposit
+    coefficient, so ``j3`` equals the monolithic deposit on every sent
+    cell.  Returns ``(species', j3_frontier, counts, frontier_flags)``:
+    ``species'`` and ``counts`` (all alive particles) as the monolithic
+    pass; one ``(slots, cap)`` bool flag tensor per species for
+    :func:`particle_phase_stacked_interior`.
+    """
+    fields = Fields(*tiles6.unbind(1))
+    oz, ox = origins[:, 0:1], origins[:, 1:2]
+    slots = tiles6.shape[0]
+    j3 = torch.zeros((slots, 3) + local_grid.shape, dtype=torch.float32, device=tiles6.device)
+    counts = torch.zeros(slots, dtype=torch.float32, device=tiles6.device)
+    out_species, flags = [], []
+    for p in species:
+        eb = _gather_stacked(fields, p.z - oz, p.x - ox, local_grid, shape_order)
+        p = advance_positions(boris_push(p, eb, local_grid.dt), domain_grid, local_grid.dt)
+        out_species.append(p)
+        on_frontier = _frontier_flag(p, oz, ox, local_grid, frontier_mask)
+        flags.append(on_frontier)
+        p_loc = p._replace(z=p.z - oz, x=p.x - ox, alive=p.alive & on_frontier)
+        j3 = j3 + _deposit_stacked(p_loc, local_grid, shape_order)
+        counts = counts + p.alive.sum(1).to(torch.float32)
+    return tuple(out_species), j3, counts, tuple(flags)
+
+
+def particle_phase_stacked_interior(
+    species: Tuple[Particles, ...],
+    origins: torch.Tensor,
+    local_grid: Grid2D,
+    *,
+    shape_order: int = 3,
+    frontier_flags: Tuple[torch.Tensor, ...],
+) -> torch.Tensor:
+    """Interior half of the split-phase step: deposit the particles the
+    frontier pass left out, from the **already advanced** species (no
+    physics recomputed).  These deposits cannot touch a sent strip cell,
+    so this pass does not depend on the strip exchange: it is the window
+    the exchange is issued across.  ``j3_frontier + j3_interior`` matches
+    the monolithic deposit to f32 rounding (only the per-cell sum order
+    changes).  Returns ``(slots, 3, pnz, pnx)``."""
+    oz, ox = origins[:, 0:1], origins[:, 1:2]
+    slots = origins.shape[0]
+    j3 = torch.zeros((slots, 3) + local_grid.shape, dtype=torch.float32, device=origins.device)
+    for p, on_frontier in zip(species, frontier_flags):
+        p_loc = p._replace(z=p.z - oz, x=p.x - ox, alive=p.alive & ~on_frontier)
+        j3 = j3 + _deposit_stacked(p_loc, local_grid, shape_order)
+    return j3
 
 
 def field_phase_stacked(

@@ -16,10 +16,22 @@ CUDA kernels' in-kernel executed-work counters, the paper's in-situ signal.
 ``torch.cuda.set_sync_debug_mode("error")``, which turns any host sync
 inside the interval into an error: the engine's contract, checked.
 
-Cost strategies: ``heuristic`` (w_p·n_particles + w_c·n_cells per box) and
-``work_counter`` (the kernels' executed-work counters).  The
-``activity_ledger`` strategy is not ported yet.  ``fused=False`` runs one
-step at a time with a fetch per step.
+Host syncs are allowed in exactly two places, as in the reference: the
+once-per-round fetch of the interval history, and the ``activity_ledger``
+strategy's measurement round, whose per-box timing is deliberately
+host-synchronous (the paper's CUPTI strategy; that overhead is what it
+measures, ~2x).  The measurement runs after the interval, outside its
+sync-free region, so ``strict_syncs`` keeps holding the interval itself.
+
+Cost strategies (paper §2.2):
+  * ``heuristic``       — w_p·n_particles + w_c·n_cells per box.
+  * ``work_counter``    — the kernels' in-kernel executed-work counters.
+  * ``activity_ledger`` — the plain ``deposit_current`` timed once per
+                          (species, box) through the ``ActivityLedger``;
+                          on a GPU each box between two CUDA events (device
+                          timestamps, a CUPTI activity record's analogue).
+
+``fused=False`` runs one step at a time with a fetch per step.
 """
 from __future__ import annotations
 
@@ -30,11 +42,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .._device import resolve_device, sync_free_region
-from ..core import HeuristicCost, LoadBalancer, VirtualCluster, WorkCounterCost
+from .._device import CudaEventClock, resolve_device, sync_free_region
+from ..core import ActivityLedger, HeuristicCost, LoadBalancer, VirtualCluster, WorkCounterCost
 from ..kernels.constants import DEPOSIT_TILE
 from .boxes import BoxDecomposition
-from .deposition import box_particle_counts, box_work_counters
+from .deposition import box_particle_counts, box_work_counters, deposit_current
 from .engine import StepOutputs, build_step_body, make_interval_fn, validate_engine_backend
 from .fields import Fields, make_sponge
 from .grid import Grid2D
@@ -42,7 +54,7 @@ from .particles import Particles
 
 __all__ = ["SimConfig", "Simulation"]
 
-_COST_STRATEGIES = ("heuristic", "work_counter")
+_COST_STRATEGIES = ("heuristic", "work_counter", "activity_ledger")
 
 
 @dataclass
@@ -57,7 +69,7 @@ class SimConfig:
     # beyond it is counted in ``dropped_total``
     kernel_cap: Optional[int] = None
     fused: bool = True  # one device-resident interval per LB round (False: per step)
-    cost_strategy: str = "work_counter"  # heuristic | work_counter
+    cost_strategy: str = "work_counter"  # heuristic | work_counter | activity_ledger
     heuristic_particle_weight: float = 0.75  # paper's Summit calibration
     heuristic_cell_weight: float = 0.25
     # fail on any host sync inside an interval (CUDA only)
@@ -90,7 +102,7 @@ class Simulation:
         self.engine_backend = validate_engine_backend(config.engine_backend)
         if config.cost_strategy not in _COST_STRATEGIES:
             raise ValueError(
-                f"cost_strategy must be one of {_COST_STRATEGIES} in this port, "
+                f"cost_strategy must be one of {_COST_STRATEGIES}, "
                 f"got {config.cost_strategy!r}"
             )
         #: particles that skipped a step because their bin was full
@@ -119,6 +131,14 @@ class Simulation:
         self.cluster = VirtualCluster(
             n_devices=config.n_virtual_devices, link_bw=config.virtual_link_bw
         )
+        # per-box timestamps: CUDA events on a GPU, the host clock elsewhere
+        self.ledger = ActivityLedger(
+            clock=CudaEventClock(self.device) if self.device.type == "cuda" else time.perf_counter
+        )
+        #: one entry per activity_ledger measurement round: its step, the
+        #: records it timed, their summed seconds per box (before the floor),
+        #: the round's work-counter row, and the round's host seconds
+        self.activity_rounds: List[Dict] = []
         self._heuristic = HeuristicCost(
             particle_weight=config.heuristic_particle_weight,
             cell_weight=config.heuristic_cell_weight,
@@ -171,7 +191,59 @@ class Simulation:
             if work is None:
                 work = box_work_counters(torch.as_tensor(counts), self.grid).numpy()
             return WorkCounterCost().measure(work_counters=work)
+        if strategy == "activity_ledger":
+            return self._measure_activity_costs(work)
         raise ValueError(f"unknown cost strategy {strategy!r}")
+
+    def box_subsets(self) -> List[Tuple[int, Particles]]:
+        """``(box, particles)`` for every (species, box) with alive
+        particles, species by species and boxes in order: each box's alive
+        particles in index order (a stable sort by box on the device, the
+        dead keyed past the last box).  What the ledger times."""
+        grid = self.grid
+        subsets = []
+        for p in self.species:
+            key = torch.where(p.alive, grid.box_of_position(p.z, p.x), grid.n_boxes)
+            sorted_order = torch.sort(key, stable=True).indices
+            counts = torch.bincount(key, minlength=grid.n_boxes + 1)[: grid.n_boxes].cpu().numpy()
+            starts = np.concatenate([[0], np.cumsum(counts)])
+            for b in np.nonzero(counts)[0]:
+                idx = sorted_order[starts[b] : starts[b + 1]]
+                subsets.append((int(b), Particles(*(t[idx] for t in p[:7]), q=p.q, m=p.m)))
+        return subsets
+
+    def _measure_activity_costs(self, work: Optional[np.ndarray] = None) -> np.ndarray:
+        """The CUPTI analogue: time the plain ``deposit_current`` once per
+        (species, box) with alive particles, record it in the ledger as
+        ``"deposit"``, sum per box, floor at 0.1x the smallest nonzero cost
+        (empty boxes still do grid work) and reset the ledger.
+
+        The reference pads each box to a power-of-two bucket only so that
+        XLA compiles once per bucket; torch compiles nothing, so each box's
+        alive particles are timed unpadded, after one untimed warm-up
+        deposit.  On a GPU each box lies between two CUDA events and the
+        host waits on the end event before the next box (the reference's
+        ``block_until_ready``); record times are seconds since an event
+        recorded at the start of the round."""
+        grid, order = self.grid, self.config.shape_order
+        t0 = time.perf_counter()
+        subsets = self.box_subsets()
+        if subsets:  # warm-up, outside the timed region
+            deposit_current(subsets[0][1], grid, order)
+        if isinstance(self.ledger.clock, CudaEventClock):
+            self.ledger.clock.reset()
+        for b, sub in subsets:
+            with self.ledger.timed("deposit", box=b):
+                deposit_current(sub, grid, order)
+        costs = self.ledger.box_durations(grid.n_boxes, kernel="deposit")
+        self.ledger.reset()
+        self.activity_rounds.append(
+            {"step": self.step_idx, "records": len(subsets), "box_s": costs.copy(),
+             "work": None if work is None else np.asarray(work).copy(),
+             "host_s": time.perf_counter() - t0}
+        )
+        floor = costs[costs > 0].min() * 0.1 if np.any(costs > 0) else 1.0
+        return np.maximum(costs, floor)
 
     # ------------------------------------------------------------------
     def run(self, n_steps: int, progress_every: int = 0) -> Dict[str, List]:
@@ -183,12 +255,22 @@ class Simulation:
 
     def _run_fused(self, n_steps: int, progress_every: int) -> None:
         """One device-resident chunk per LB round; chunk boundaries stay
-        aligned to multiples of ``lb_interval`` across ``run()`` calls."""
-        interval = max(1, self.config.lb_interval)
+        aligned to multiples of ``lb_interval`` across ``run()`` calls.  A
+        measurement round of ``activity_ledger`` runs its first step alone,
+        so the ledger times the state after the round-boundary step (as
+        per-step execution does), then the rest of the chunk."""
+        cfg = self.config
+        interval = max(1, cfg.lb_interval)
         remaining = n_steps
         while remaining > 0:
             chunk = min(remaining, interval - (self.step_idx % interval))
-            self._run_chunk(chunk, progress_every)
+            lb_round = cfg.lb_enabled and self.balancer.should_run(self.step_idx)
+            if lb_round and cfg.cost_strategy == "activity_ledger" and chunk > 1:
+                pieces = [1, chunk - 1]
+            else:
+                pieces = [chunk]
+            for piece in pieces:
+                self._run_chunk(piece, progress_every)
             remaining -= chunk
 
     def _t_now(self) -> torch.Tensor:

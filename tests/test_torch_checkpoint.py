@@ -282,3 +282,56 @@ def test_sharded_snapshot_crosses_packages_bit_for_bit(tmp_path):
     ref_save(tmp_path / "b", ref_tree, step=4)
     got, _ = restore_checkpoint(tmp_path / "b", None)
     _assert_trees_equal(got, snap)
+
+
+def test_box_snapshot_crosses_packages_bit_for_bit(tmp_path):
+    """The same round trip for a snapshot of the port's BoxRuntime."""
+    from repro.ckpt import restore_checkpoint as ref_restore
+    from repro.ckpt import save_checkpoint as ref_save
+    from repro_torch.dist import BoxRuntime
+    from repro_torch.pic import laser_ion_problem
+
+    rt = BoxRuntime(laser_ion_problem(nz=32, nx=32, box_cells=8, ppc=2, device="cpu"), 2,
+                    lb_interval=2, device="cpu", pipeline="async")
+    rt.run(4)
+    snap = rt.snapshot()
+    save_checkpoint(tmp_path / "a", snap, step=4)
+    ref_tree, _ = ref_restore(tmp_path / "a", None)
+    ref_save(tmp_path / "b", ref_tree, step=4)
+    got, _ = restore_checkpoint(tmp_path / "b", None)
+    _assert_trees_equal(got, snap)
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_box_checkpoint_restores_in_the_other_package(writer, tmp_path):
+    """A BoxRuntime checkpoint written by one package, restored into the
+    other's BoxRuntime, goes on with the writer's physics: fields within
+    1e-5·max, the same census per box."""
+    from repro.ckpt import restore_checkpoint as ref_restore
+    from repro.ckpt import save_checkpoint as ref_save
+    from repro.dist import BoxRuntime as JBox
+    from repro.pic import laser_ion_problem as j_laser_ion
+    from repro_torch.dist import BoxRuntime as TBox
+    from repro_torch.pic import laser_ion_problem
+
+    kw = dict(nz=32, nx=32, box_cells=8, ppc=2)
+    make = {
+        "reference": lambda: JBox(j_laser_ion(**kw), n_devices=1, lb_interval=2),
+        "port": lambda: TBox(laser_ion_problem(**kw, device="cpu"), 1, lb_interval=2, device="cpu"),
+    }
+    save = {"reference": ref_save, "port": save_checkpoint}
+    load = {"reference": ref_restore, "port": restore_checkpoint}
+    reader = "port" if writer == "reference" else "reference"
+    src = make[writer]()
+    src.run(4)
+    save[writer](tmp_path, src.snapshot(), step=4)
+    tree, step = load[reader](tmp_path, None)
+    dst = make[reader]()
+    dst.restore(tree)
+    assert step == 4 and dst.step_idx == 4
+    src.run(4)
+    dst.run(4)
+    f_src = np.stack([np.asarray(c) for c in src.fields])
+    f_dst = np.stack([np.asarray(c) for c in dst.fields])
+    assert np.abs(f_dst - f_src).max() <= 1e-5 * max(np.abs(f_src).max(), 1e-30)
+    np.testing.assert_array_equal(np.asarray(dst.box_counts()), np.asarray(src.box_counts()))

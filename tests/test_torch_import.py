@@ -47,7 +47,8 @@ def test_port_imports_without_jax():
     names = set(out.stdout.split())
     assert len(names) >= 20  # every module of the slices was imported
     for module in ("ckpt.checkpoint", "dist.faults", "dist.elastic", "dist.recovery",
-                   "dist.sharded_runtime", "pic.engine"):
+                   "dist.sharded_runtime", "dist.box_runtime", "core.perfmodel",
+                   "pic.sharded", "pic.engine"):
         assert f"repro_torch.{module}" in names, module
 
 

@@ -10,7 +10,10 @@ and the final physics (``test_torch_sharded.assert_matches``) agree.  Under
 the reference's async runtime cannot restore in place after a
 corrupt-state fault (its restore harvests the round in flight into the
 poisoned balancer); the recovery events do not depend on the pipeline.
-The rest are counterparts of ``tests/test_recovery.py``'s sharded cases.
+The rest are counterparts of ``tests/test_recovery.py``'s sharded cases,
+then of its ``kind="box"`` cases over the port's ``BoxRuntime`` (one device
+here, against the reference's in process; the kills on 2 and 4 devices are
+in ``test_torch_box_runtime.py``).
 """
 import json
 
@@ -223,3 +226,104 @@ def test_elastic_runner_last_device_terminal_event():
         er.fail_device(0)
     assert any(e["kind"] == "terminal" for e in er.events)
     assert er.lb.n_devices == 1
+
+
+# ---------------------------------------------------------------------------
+# RecoveryRunner over BoxRuntime (tests/test_recovery.py, kind="box")
+# ---------------------------------------------------------------------------
+
+
+def _box_spec(pipeline, faults, **runner):
+    return ("laser", 1, dict(lb_interval=INTERVAL, pipeline=pipeline),
+            [("recover", dict(faults=faults, steps=STEPS, runner=runner))])
+
+
+@pytest.mark.parametrize("case,pipeline", [("nan_history", "async"), ("worker_exc", "sync"),
+                                           ("torn_ckpt", "sync"), ("nan_twice", "async")])
+def test_box_chaos_matches_reference(case, pipeline):
+    """``nan_history`` (async) and ``worker_exc`` are the reference's box
+    cases; the reference's box runtime restores in place under either
+    pipeline, so these are held to its own pipeline."""
+    import test_torch_box_runtime as box
+
+    spec = _box_spec(pipeline, CHAOS[case])
+    got, ref = box.box_port(spec), box.box_reference(spec)
+    box.assert_box_matches(got, ref)
+    kinds = [ev["kind"] for ev in _exact(got)["recovery_events"]]
+    if case == "worker_exc":
+        assert "ckpt_error" in kinds and "restore" not in kinds
+    else:
+        assert "fail" in kinds and "restore" in kinds
+        assert not any(ev["kind"] == "degrade" and ev["what"] == "mig_cap"
+                       for ev in _exact(got)["recovery_events"])
+
+
+def _make_box(pipeline="sync"):
+    from repro_torch.dist import BoxRuntime
+
+    def make(n_devices):
+        return BoxRuntime(_problem(), n_devices, lb_interval=INTERVAL, pipeline=pipeline,
+                          device="cpu")
+
+    return make
+
+
+def _assert_box_physics(rt, ref):
+    f = np.stack([np.asarray(c) for c in rt.fields])
+    f_ref = np.stack([np.asarray(c) for c in ref.fields])
+    assert np.abs(f - f_ref).max() <= 1e-5 * max(float(np.abs(f_ref).max()), 1e-30)
+    assert rt.total_alive() == ref.total_alive()
+    np.testing.assert_array_equal(rt.box_counts(), ref.box_counts())
+
+
+def test_box_snapshot_restore_roundtrip_continues_identically():
+    make = _make_box("async")
+    rt = make(1)
+    rt.run(4)
+    snap = rt.snapshot()
+    rt2 = make(1)
+    rt2.restore(snap)
+    assert rt2.step_idx == rt.step_idx
+    rt.run(4)
+    rt2.run(4)
+    _assert_box_physics(rt2, rt)
+
+
+def test_box_checkpoint_roundtrip_through_disk(tmp_path):
+    make = _make_box()
+    rt = make(1)
+    rt.run(4)
+    mgr = CheckpointManager(tmp_path, keep=2)
+    mgr.save_async(rt.snapshot(), step=rt.step_idx)
+    tree, step = mgr.restore(None)
+    assert step == 4
+    rt2 = make(1)
+    rt2.restore(tree)
+    rt.run(4)
+    rt2.run(4)
+    _assert_box_physics(rt2, rt)
+
+
+def test_box_last_device_loss_is_terminal(tmp_path):
+    inj = FaultInjector(FaultSchedule([Fault("kill_device", interval=1, device=0)]))
+    runner = RecoveryRunner(_make_box(), 1, ckpt_dir=tmp_path, injector=inj)
+    with pytest.raises(RecoveryError, match="last remaining device"):
+        runner.run(STEPS)
+    terms = _events(runner, "terminal")
+    assert terms and "last remaining device" in terms[0]["error"]
+    tree, step = runner.ckpt.restore(None)
+    assert step >= 0
+
+
+def test_box_checkpoint_cadence_every_two_intervals(tmp_path):
+    runner = RecoveryRunner(_make_box(), 1, ckpt_dir=tmp_path, ckpt_every=2, keep=10)
+    runner.run(STEPS)
+    assert available_steps(tmp_path) == [0, 4, 8]
+
+
+def test_box_poison_reaches_the_runtime_state():
+    rt = _make_box()(1)
+    rt.run(INTERVAL)
+    FaultInjector(FaultSchedule()).poison(rt)
+    assert np.isnan(rt._counts).all()
+    assert np.isnan(rt.balancer._smoother._state).all()

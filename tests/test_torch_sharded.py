@@ -49,6 +49,12 @@ from repro_torch.dist import (
 from repro_torch.kernels.constants import DEPOSIT_TILE
 from repro_torch.pic import laser_ion_problem
 
+# The suite runs several pytest workers on one machine, and these tests
+# issue many small tensor ops: with torch's default of one intra-op thread
+# per core in every worker, the workers' thread pools oversubscribe the
+# cores and small ops slow down by orders of magnitude.  Every worker
+# imports this module (the port's tests share it), so one thread each.
+torch.set_num_threads(1)
 
 PROBLEM = dict(nz=32, nx=32, box_cells=8, ppc=2)
 BEAMS = dict(nz=32, nx=32, box_cells=8, ppc=4)
@@ -126,7 +132,23 @@ MULTI_CASES["recover-seeded-2"] = (
 )
 
 
+# split-phase stepping through an adoption (the gate open, and one forced)
+for _n in (2, 4):
+    for _comm in ("neighbor", "ring"):
+        MULTI_CASES[f"overlap-{_n}-{_comm}"] = (
+            "split", _n, dict(comm=_comm, lb_interval=3, overlap=True, improvement_threshold=0.0),
+            [("run", 3), ("force",), ("run", 6)],
+        )
+
+
+#: 16-cell boxes keep an interior band under halo 4 (8-cell boxes are all
+#: frontier), so split-phase stepping has something to split
+SPLIT = dict(nz=32, nx=32, box_cells=16, ppc=3)
+
+
 def problem(name, laser_ion, beams, **kw):
+    if name == "split":
+        return laser_ion(**SPLIT, **kw)
     return (laser_ion(**PROBLEM, **kw) if name == "laser" else beams(**BEAMS, **kw))
 
 
@@ -445,7 +467,11 @@ def test_bad_mappings_raise():
 
 def test_flags_not_ported_raise():
     assert validate_pipeline("async") == "async"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # split-phase stepping is ported for the plain path; the kernels'
+    # path raises, as the reference's "pallas" does
+    assert ShardedRuntime(_cpu_problem(), 1, device="cpu", overlap=True,
+                          engine_backend="torch").overlap
+    with pytest.raises(ValueError, match="overlap"):
         ShardedRuntime(_cpu_problem(), 1, device="cpu", overlap=True)
     with pytest.raises(ValueError, match="pipeline"):
         validate_pipeline("eager")

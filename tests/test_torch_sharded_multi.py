@@ -27,6 +27,10 @@ runtime cannot restore in place after a corrupt-state fault (its restore
 harvests the round in flight into the poisoned balancer and raises), so
 the port's async runs of the last two are held to the reference's sync
 events, census, fields and float64 kinetic energy.
+
+``overlap=True`` (split-phase stepping, port ``"torch"``): both ``comm``
+modes at 2 and 4 devices with the adoption gate open and one forced
+adoption, on 16-cell boxes (8-cell boxes are all frontier).
 """
 import json
 import os
@@ -103,6 +107,13 @@ def test_straggler_loop_matches_reference(reference):
 def test_snapshot_on_two_restored_on_one_matches_reference(reference):
     exact = _check("restore-2-to-1", "torch", reference)
     assert exact["step_idx"] == 8
+
+
+@pytest.mark.parametrize("comm", ["neighbor", "ring"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_overlap_matches_reference(n, comm, reference):
+    exact = _check(f"overlap-{n}-{comm}", "torch", reference)
+    assert exact["dropped_total"] == 0 and len(exact["events"]) == 3
 
 
 def _async_variant(name):

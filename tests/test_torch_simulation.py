@@ -145,5 +145,9 @@ def test_device_defaults_to_cuda_without_fallback(monkeypatch):
         Simulation(prob)
     with pytest.raises(ValueError, match="engine_backend"):
         Simulation(prob, SimConfig(engine_backend="pallas"), device="cpu")
+    # every strategy of the reference is ported; an unknown one raises
+    sim = Simulation(prob, SimConfig(cost_strategy="activity_ledger"), device="cpu")
+    sim.run(1)
+    assert sim.activity_rounds and sim.balancer.events
     with pytest.raises(ValueError, match="cost_strategy"):
-        Simulation(prob, SimConfig(cost_strategy="activity_ledger"), device="cpu")
+        Simulation(prob, SimConfig(cost_strategy="cupti"), device="cpu")
