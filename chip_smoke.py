@@ -98,6 +98,33 @@ Phases (any failure exits non-zero before the result line):
      e. the block-sharded FDTD on 2x2 logical devices at 1920², 50 field
         steps against the global step, within 1e-5·max.
 
+  8. the MoE serving lane (no PIC kernel launches here; the counts must
+     stay 0):
+     a. the serve-toy config (D 32, 16 experts, top-2, float32 params made
+        on the CPU and copied) through ``ExpertRuntime`` on the card and on
+        the CPU, 30 steps of the same traffic: routing stats equal every
+        step, outputs within 1e-5, the balancer's events and mappings
+        equal; the ``einsum`` and ``sort`` dispatches on the card at the
+        same bounds;
+     b. Llama-4-Scout's MoE block at its full width (D 5120, F 8192, 16
+        experts, top-1, shared expert, bf16, drawn on the card): the
+        forward alone on a pre-drawn 8x1024 batch (CUDA-event median of
+        10) against its fp32 operations bound; ``ExpertRuntime(n_devices=4,
+        lb_interval=5, ema_alpha=0.5)`` sync and async for 30 steps (device
+        1 at half capacity from step 15, which forces a rebalance) and the
+        heuristic cost source for 15, every step under sync-debug "error":
+        ms/step split into host traffic generation and the rest, tokens/s,
+        adoptions with each permutation's device time, one host sync per
+        interval, the counters exact per step (tokens sum to B·S·K, slots
+        filled never above tokens), the last round's costs by expert id
+        from both sources, peak memory, and the served function on a fixed
+        batch unchanged across the adoptions within 1e-5·max|out|; then
+        ``snapshot()`` and a restore onto 2 modelled devices, timed, to the
+        same bound;
+     c. Mixtral-8x7B's MoE block (D 4096, F 14336, 8 experts, top-2):
+        ``sort`` against ``einsum`` on one 2x1024 batch, stats equal and
+        outputs within 1e-5·max|out|.
+
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/repro_torch`` beside this file, it exits 2
@@ -1432,6 +1459,323 @@ def sharded_fdtd_phase(smi: str) -> None:
         f"{ms_sh:.2f} ms/step sharded vs {ms_ref:.2f} global ({smi})")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the MoE serving lane
+# ---------------------------------------------------------------------------
+
+SERVE_TOY = dict(
+    name="serve-toy", kind="moe", n_layers=1, d_model=32, n_heads=2, n_kv_heads=2,
+    head_dim=16, d_ff=64, vocab=64, n_experts=16, top_k=2,
+)
+SERVE_TOY_TRAFFIC = dict(seed=3, d_model=32, batch=2, seq=16, n_topics=8, skew=2.5,
+                         period=64, night_load=0.5, flip_every=8, burst_every=12)
+SERVE_FULL_TRAFFIC = dict(seed=7, batch=8, seq=1024, n_topics=16, skew=2.5,
+                          night_load=1.0, flip_every=15)
+
+
+@contextlib.contextmanager
+def serve_taps(keep_out: bool = False):
+    """Inside: every forward the serving runtimes run logs its routing stats
+    (and, with ``keep_out``, its output), and every expert permutation is
+    bracketed by two CUDA events; nothing waits on the device."""
+    import torch
+
+    import repro_torch.serve.expert_runtime as er
+
+    taps = {"stats": [], "out": [], "perm_events": [], "perm_host_s": []}
+    moe, permute = er.moe, er.apply_expert_permutation
+
+    def logged_moe(p, cfg, x):
+        out, stats = moe(p, cfg, x)
+        taps["stats"].append({k: stats[k] for k in ("tokens_per_expert", "slots_filled",
+                                                     "dropped_fraction")})
+        if keep_out:
+            taps["out"].append(out)
+        return out, stats
+
+    def timed_permute(p, perm):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = permute(p, perm)
+        end.record()
+        taps["perm_host_s"].append(time.perf_counter() - t0)
+        taps["perm_events"].append((start, end))
+        return out
+
+    er.moe, er.apply_expert_permutation = logged_moe, timed_permute
+    try:
+        yield taps
+    finally:
+        er.moe, er.apply_expert_permutation = moe, permute
+
+
+class TimedTraffic:
+    """A traffic generator whose ``batch`` draws are timed on the host."""
+
+    def __init__(self, gen):
+        self.gen, self.seconds = gen, 0.0
+
+    def batch(self, step):
+        t0 = time.perf_counter()
+        x = self.gen.batch(step)
+        self.seconds += time.perf_counter() - t0
+        return x
+
+
+def _events(rt):
+    import dataclasses
+
+    return [dataclasses.astuple(e) for e in rt.balancer.events]
+
+
+def serve_toy_phase() -> None:
+    """Phase 8a: the serve-toy config and traffic through the port on the
+    card and on the CPU: routing stats per step, events and mappings equal,
+    outputs within 1e-5; ``einsum`` against ``sort`` on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch._device import map_tensors
+    from repro_torch.models import ModelConfig, init_moe, moe
+    from repro_torch.serve import ExpertRuntime, TrafficConfig, TrafficGenerator
+
+    cfg = ModelConfig(**SERVE_TOY, param_dtype=torch.float32)
+    params_cpu, _ = init_moe(torch.Generator().manual_seed(0), cfg)
+    params = {"cuda": map_tensors(lambda t: t.to("cuda"), params_cpu), "cpu": params_cpu}
+    n_steps, runs = 30, {}
+    for dev in ("cuda", "cpu"):
+        rt = ExpertRuntime(params[dev], cfg, TrafficGenerator(TrafficConfig(**SERVE_TOY_TRAFFIC)),
+                           n_devices=8, lb_interval=5, ema_alpha=0.5, device=dev)
+        mappings = []
+        with serve_taps(keep_out=True) as taps:
+            for _ in range(n_steps):
+                rt.step()
+                mappings.append(tuple(rt.balancer.mapping))
+        runs[dev] = dict(rt=rt, mappings=mappings,
+                         stats=[{k: v.cpu().numpy() for k, v in s.items()} for s in taps["stats"]],
+                         out=[o.cpu().numpy() for o in taps["out"]])
+    a, b = runs["cuda"], runs["cpu"]
+    for step, (sa, sb) in enumerate(zip(a["stats"], b["stats"])):
+        for k in sa:
+            if not np.array_equal(sa[k], sb[k]):
+                raise AssertionError(f"serve: toy step {step}: {k} card {sa[k]} vs cpu {sb[k]}")
+    err = max(float(np.abs(oa - ob).max()) for oa, ob in zip(a["out"], b["out"]))
+    if err > 1e-5:
+        raise AssertionError(f"serve: toy outputs card vs cpu max|d| {err:.3g}")
+    if _events(a["rt"]) != _events(b["rt"]) or a["mappings"] != b["mappings"]:
+        raise AssertionError("serve: toy balancer events or mappings differ between card and cpu")
+    for ca, cb in zip(a["rt"].interval_costs, b["rt"].interval_costs):
+        if not np.array_equal(ca, cb):
+            raise AssertionError("serve: toy interval costs differ between card and cpu")
+    gen = TrafficGenerator(TrafficConfig(**SERVE_TOY_TRAFFIC))
+    impl_err = 0.0
+    with torch.no_grad():
+        for step in (0, 9, 17):
+            x = torch.from_numpy(gen.batch(step)).to("cuda")
+            out_s, st_s = moe(params["cuda"], cfg.scaled(moe_impl="sort"), x)
+            out_e, st_e = moe(params["cuda"], cfg.scaled(moe_impl="einsum"), x)
+            for k in ("tokens_per_expert", "slots_filled", "dropped_fraction"):
+                if not torch.equal(st_s[k], st_e[k]):
+                    raise AssertionError(f"serve: toy sort vs einsum {k} differ on the card")
+            impl_err = max(impl_err, float((out_s - out_e).abs().max()))
+    if impl_err > 1e-5:
+        raise AssertionError(f"serve: toy sort vs einsum on the card max|d| {impl_err:.3g}")
+    log(f"serve: toy (D 32, E 16, top-2, f32) card vs cpu over {n_steps} steps: routing stats "
+        f"equal every step, outputs max|d| {err:.3g}, {len(_events(a['rt']))} LB events and "
+        f"the mappings equal ({a['rt'].lb_adoptions} adoptions); sort vs einsum on the card "
+        f"max|d| {impl_err:.3g}, stats equal")
+
+
+def serve_full_run(params, cfg, n_steps: int, x_fixed, out_fixed, fwd_ms: float, smi: str,
+                   slow_at=None, **kw):
+    """One ``ExpertRuntime`` run at full width: ms/step (host traffic
+    generation and the rest), tokens/s, adoptions with their permutation
+    times, host syncs, efficiency, peak memory; checks the counters per
+    step, one host sync per interval, and the served function on
+    ``x_fixed`` after the run.  With ``slow_at``, modelled device 1 drops
+    to half speed before that step (``update_capacities``), which forces
+    the next LB round to rebalance: the traffic alone is near-uniform at
+    this width, and the gate refuses it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.serve import ExpertRuntime, TrafficConfig, TrafficGenerator
+
+    traffic = TimedTraffic(TrafficGenerator(TrafficConfig(d_model=cfg.d_model, **SERVE_FULL_TRAFFIC)))
+    rt = ExpertRuntime(params, cfg, traffic, n_devices=4, lb_interval=5, ema_alpha=0.5, **kw)
+    label = f"{rt.pipeline}/{rt.cost_source}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    placements = []  # the layout each step ran under
+    with serve_taps() as taps:
+        t0 = time.perf_counter()
+        for step in range(n_steps):
+            if step == slow_at:
+                rt.update_capacities([1.0, 0.5, 1.0, 1.0])
+            placements.append(rt.expert_placement())
+            rt.step()
+        rt.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n_tok = SERVE_FULL_TRAFFIC["batch"] * SERVE_FULL_TRAFFIC["seq"] * cfg.top_k
+    by_expert = {"slots_filled": [], "tokens_per_expert": []}
+    for step, (st, placement) in enumerate(zip(taps["stats"], placements)):
+        tpe, sf = st["tokens_per_expert"].cpu(), st["slots_filled"].cpu()
+        if float(tpe.sum()) != n_tok or bool((sf > tpe).any()):
+            raise AssertionError(f"serve: {label} step {step}: tokens {tpe.tolist()}, slots {sf.tolist()}")
+        for key, t in (("slots_filled", sf), ("tokens_per_expert", tpe)):
+            row = np.zeros(cfg.n_experts)
+            row[placement] = t.numpy()
+            by_expert[key].append(row)
+    interval = rt.balancer.interval
+    n_rounds = -(-n_steps // interval)
+    if rt.host_syncs != n_rounds or len(rt.efficiency_trace) != n_rounds:
+        raise AssertionError(f"serve: {label}: {rt.host_syncs} host syncs for {n_rounds} intervals")
+    if slow_at is not None and rt.lb_adoptions < 1:
+        raise AssertionError(f"serve: {label}: no adoption after the capacity change")
+    last = (n_rounds - 1) * interval
+    last_round = {k: np.sum(v[max(0, last - interval + 1):last + 1], axis=0) for k, v in by_expert.items()}
+    source_key = "slots_filled" if rt.cost_source == "work_counter" else "tokens_per_expert"
+    if not np.array_equal(last_round[source_key], rt.interval_costs[-1]):
+        raise AssertionError(f"serve: {label}: last round's costs {rt.interval_costs[-1]} vs the "
+                             f"forwards' {last_round[source_key]}")
+    with torch.no_grad():
+        out = moe(rt.params, cfg, x_fixed)[0]
+    err = float((out - out_fixed).abs().max())
+    bound = 1e-5 * float(out_fixed.abs().max())
+    if not err <= bound:
+        raise AssertionError(f"serve: {label}: served function moved by {err:.3g} > {bound:.3g}")
+    perm_ms = [s.elapsed_time(e) for s, e in taps["perm_events"]]
+    gen_ms = traffic.seconds * 1e3 / n_steps
+    step_ms = wall * 1e3 / n_steps
+    log(f"serve: {label} {n_steps} steps ({smi}): {step_ms:.2f} ms/step = "
+        f"{gen_ms:.2f} host traffic generation + {step_ms - gen_ms:.2f} the rest; "
+        f"{n_steps * SERVE_FULL_TRAFFIC['batch'] * SERVE_FULL_TRAFFIC['seq'] / wall:.0f} tokens/s; "
+        f"forward alone / ms per step {fwd_ms / step_ms:.3f}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    slow = f"device 1 at half speed from step {slow_at}; " if slow_at is not None else ""
+    log(f"serve: {label}: {slow}lb_adoptions {rt.lb_adoptions} at steps "
+        f"{[e.step for e in rt.balancer.events if e.adopted]}, host_syncs {rt.host_syncs}, "
+        f"mean_efficiency {rt.mean_efficiency():.4f}, efficiency trace "
+        f"{[(s, round(e, 4)) for s, e in rt.efficiency_trace]}; permutation device ms "
+        f"{[round(m, 3) for m in perm_ms]}, host ms {[round(s * 1e3, 2) for s in taps['perm_host_s']]}; "
+        f"served function after adoptions max|d| {err:.3g} (bound {bound:.3g})")
+    log(f"serve: {label}: last round (steps {max(0, last - interval + 1)}-{last}) per expert id: "
+        f"slots_filled {last_round['slots_filled'].astype(int).tolist()}, tokens_per_expert "
+        f"{last_round['tokens_per_expert'].astype(int).tolist()}")
+    return rt
+
+
+def serve_phase(smi: str) -> None:
+    """Phase 8: the serving lane.  8a the toy on card and CPU; 8b Scout's
+    full MoE block through ``ExpertRuntime`` (sync, async, heuristic), its
+    forward against the fp32 bound, snapshot and a 4 -> 2 restore; 8c
+    Mixtral's block, sort against einsum on one batch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.deposition import deposit_local_tiles
+    from repro_torch.kernels.gather_push import gather_push_move
+    from repro_torch.models import init_moe, moe
+    from repro_torch.serve import ExpertRuntime, TrafficConfig, TrafficGenerator
+
+    log(f"serve: torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}")
+    for fn in (gather_push_move, deposit_local_tiles):
+        fn.launches = 0
+    serve_toy_phase()
+
+    cfg = get_config("llama4-scout-17b-a16e")
+    t0 = time.perf_counter()
+    params, _ = init_moe(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    stack_b = sum(params[k].numel() * params[k].element_size() for k in ("w_gate", "w_up", "w_down"))
+    shared_b = sum(t.numel() * t.element_size() for t in params["shared"].values())
+    B, S = SERVE_FULL_TRAFFIC["batch"], SERVE_FULL_TRAFFIC["seq"]
+    C = max(1, int(np.ceil(cfg.capacity_factor * S * cfg.top_k / cfg.n_experts)))
+    log(f"serve: {cfg.name} MoE block D {cfg.d_model} F {cfg.d_ff} E {cfg.n_experts} top-{cfg.top_k} "
+        f"shared expert {cfg.shared_expert}, {str(cfg.param_dtype)}: expert stacks {stack_b / 1e9:.2f} GB, "
+        f"shared {shared_b / 1e9:.2f} GB, drawn on the card in {time.perf_counter() - t0:.2f} s; "
+        f"{B}x{S} tokens per step, C {C} per sequence")
+
+    gen = TrafficGenerator(TrafficConfig(d_model=cfg.d_model, **dict(SERVE_FULL_TRAFFIC, seed=11)))
+    x_fixed = torch.from_numpy(gen.batch(0)).to("cuda")
+    with torch.no_grad():
+        out_fixed = moe(params, cfg, x_fixed)[0]
+        fwd_ms = cuda_time_ms(lambda: moe(params, cfg, x_fixed))
+    slots = B * cfg.n_experts * C
+    flops = (slots + (B * S if cfg.shared_expert else 0)) * 6 * cfg.d_model * cfg.d_ff
+    bytes_ = stack_b + shared_b + 2 * x_fixed.numel() * 4 + params["router"].numel() * 4
+    b_ms, b_by = bound_ms(bytes_, flops)
+    log(f"serve: forward alone on a pre-drawn batch: {fwd_ms:.2f} ms (CUDA-event median of 10); "
+        f"bound {b_ms:.2f} ms ({b_by}: {flops / 1e12:.3f} TFLOP fp32 over {slots} capacity slots "
+        f"+ {B * S} shared-expert tokens; {bytes_ / 1e9:.2f} GB); {flops / fwd_ms / 1e9:.1f} TFLOP/s ({smi})")
+
+    for n_steps, kw in ((30, dict(pipeline="sync", slow_at=15)),
+                        (30, dict(pipeline="async", slow_at=15)),
+                        (15, dict(cost_source="heuristic"))):
+        rt = serve_full_run(params, cfg, n_steps, x_fixed, out_fixed, fwd_ms, smi, **kw)
+        if kw.get("pipeline") == "sync":
+            keep = rt
+        else:
+            del rt
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    snap = keep.snapshot()
+    t_snap = time.perf_counter() - t0
+    del keep
+    torch.cuda.empty_cache()
+    rt2 = ExpertRuntime(params, cfg, TrafficGenerator(TrafficConfig(d_model=cfg.d_model, **SERVE_FULL_TRAFFIC)),
+                        n_devices=2, lb_interval=5, ema_alpha=0.5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rt2.restore(snap)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    with torch.no_grad():
+        err = float((moe(rt2.params, cfg, x_fixed)[0] - out_fixed).abs().max())
+    bound = 1e-5 * float(out_fixed.abs().max())
+    if not err <= bound or np.bincount(rt2.balancer.mapping, minlength=2).tolist() != [8, 8]:
+        raise AssertionError(f"serve: restore 4 -> 2: max|d| {err:.3g} (bound {bound:.3g}), "
+                             f"mapping {rt2.balancer.mapping}")
+    log(f"serve: snapshot {t_snap:.2f} s (to CPU tensors), restore onto 2 modelled devices "
+        f"{t_restore:.2f} s; served function max|d| {err:.3g} (bound {bound:.3g}); "
+        f"placement {rt2.expert_placement().tolist()}")
+    del rt2, snap, params, x_fixed, out_fixed
+    torch.cuda.empty_cache()
+
+    cfg = get_config("mixtral-8x7b")
+    params, _ = init_moe(torch.Generator(device="cuda").manual_seed(1), cfg)
+    stack_b = sum(params[k].numel() * params[k].element_size() for k in ("w_gate", "w_up", "w_down"))
+    gen = TrafficGenerator(TrafficConfig(seed=13, d_model=cfg.d_model, batch=2, seq=1024,
+                                         n_topics=8, skew=2.5, night_load=1.0))
+    x = torch.from_numpy(gen.batch(0)).to("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out_s, st_s = moe(params, cfg.scaled(moe_impl="sort"), x)
+        out_e, st_e = moe(params, cfg.scaled(moe_impl="einsum"), x)
+        torch.cuda.synchronize()
+        t_both = time.perf_counter() - t0
+    for k in ("tokens_per_expert", "slots_filled", "dropped_fraction"):
+        if not torch.equal(st_s[k], st_e[k]):
+            raise AssertionError(f"serve: mixtral sort vs einsum {k} differ")
+    err = float((out_s - out_e).abs().max())
+    bound = 1e-5 * float(out_s.abs().max())
+    if not err <= bound:
+        raise AssertionError(f"serve: mixtral sort vs einsum max|d| {err:.3g} > {bound:.3g}")
+    log(f"serve: {cfg.name} MoE block D {cfg.d_model} F {cfg.d_ff} E {cfg.n_experts} top-{cfg.top_k}, "
+        f"{stack_b / 1e9:.2f} GB: sort vs einsum on 2x1024 tokens max|d| {err:.3g} (bound {bound:.3g}), "
+        f"stats equal (tokens {st_s['tokens_per_expert'].int().tolist()}, dropped "
+        f"{float(st_s['dropped_fraction']):.4f}); both in {t_both:.2f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if gather_push_move.launches or deposit_local_tiles.launches:
+        raise AssertionError("serve: the serving lane launched a PIC kernel")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").exists():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
@@ -1523,6 +1867,7 @@ def main() -> int:
     overlap_phase(smi)
     box_runtime_phase(smi)
     sharded_fdtd_phase(smi)
+    serve_phase(smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -15,6 +15,7 @@ import torch
 __all__ = [
     "DEFAULT_DEVICE",
     "CudaEventClock",
+    "make_generator",
     "resolve_device",
     "sync_free_region",
     "to_device",
@@ -50,6 +51,17 @@ def sync_free_region(enabled: bool) -> Iterator[None]:
         yield
     finally:
         torch.cuda.set_sync_debug_mode(prev)
+
+
+def make_generator(
+    seed: Union[int, torch.Generator], device: Optional[Union[str, torch.device]] = None
+) -> torch.Generator:
+    """``seed`` if it is already a generator (its device decides where the
+    draws land), else a new generator on ``resolve_device(device)`` seeded
+    with it."""
+    if isinstance(seed, torch.Generator):
+        return seed
+    return torch.Generator(device=resolve_device(device)).manual_seed(int(seed))
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:

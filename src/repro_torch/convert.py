@@ -8,11 +8,15 @@ reference ``ProblemSetup`` or field state to the port, and
 tensors back to numpy for comparison.  :func:`slots_from` /
 :func:`slots_to_numpy` do the same for slot-major stacks (the sharded
 runtime's state): a stack's rows split into equal blocks, one per logical
-device, and back.
+device, and back.  :func:`params_from` / :func:`params_to_numpy` carry a
+nested params dict (the MoE block's) into tensors and back, each leaf's
+dtype kept; a bfloat16 leaf (an ``ml_dtypes`` array, recognised by its
+dtype's name, so ``ml_dtypes`` need not be installed) crosses through its
+uint16 bits.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -33,6 +37,8 @@ __all__ = [
     "fields_to_numpy",
     "slots_from",
     "slots_to_numpy",
+    "params_from",
+    "params_to_numpy",
 ]
 
 _PARTICLE_LEAVES = ("z", "x", "ux", "uy", "uz", "w", "alive", "q", "m")
@@ -112,3 +118,31 @@ def slots_to_numpy(per_device: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, n
     device order, as numpy arrays."""
     keys = per_device[0].keys()
     return {k: np.concatenate([b[k].detach().cpu().numpy() for b in per_device]) for k in keys}
+
+
+def _param_tensor(a, device) -> torch.Tensor:
+    """One params leaf as a tensor on ``device``, its dtype kept."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        bits = np.array(arr).view(np.uint16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def params_from(tree: Any, device) -> Any:
+    """A nested dict of arrays (numpy, ``ml_dtypes`` bfloat16, or tensors)
+    as the same dict of tensors on ``device``, each leaf's dtype kept."""
+    if isinstance(tree, dict):
+        return {k: params_from(v, device) for k, v in tree.items()}
+    return _param_tensor(tree, device)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """The numpy counterpart of :func:`params_from`: bfloat16 leaves come
+    back as float32 (exact), since numpy has no bfloat16 of its own."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -48,7 +48,9 @@ def test_port_imports_without_jax():
     assert len(names) >= 20  # every module of the slices was imported
     for module in ("ckpt.checkpoint", "dist.faults", "dist.elastic", "dist.recovery",
                    "dist.sharded_runtime", "dist.box_runtime", "core.perfmodel",
-                   "pic.sharded", "pic.engine"):
+                   "pic.sharded", "pic.engine", "models.common", "models.moe",
+                   "configs", "configs.llama4_scout_17b_a16e", "serve.traffic",
+                   "serve.expert_runtime", "train.servestep", "kernels.ref"):
         assert f"repro_torch.{module}" in names, module
 
 
