@@ -54,11 +54,13 @@ def sync_free_region(enabled: bool) -> Iterator[None]:
 
 
 def make_generator(
-    seed: Union[int, torch.Generator], device: Optional[Union[str, torch.device]] = None
-) -> torch.Generator:
+    seed: Union[int, torch.Generator, None], device: Optional[Union[str, torch.device]] = None
+) -> Optional[torch.Generator]:
     """``seed`` if it is already a generator (its device decides where the
     draws land), else a new generator on ``resolve_device(device)`` seeded
-    with it."""
+    with it; ``None`` for ``device="meta"`` (shapes only, nothing drawn)."""
+    if device is not None and torch.device(device).type == "meta":
+        return None
     if isinstance(seed, torch.Generator):
         return seed
     return torch.Generator(device=resolve_device(device)).manual_seed(int(seed))

@@ -4,7 +4,7 @@ module per arch.
 Each module defines ``CONFIG`` (the exact assigned configuration) and
 ``SMOKE`` (a reduced same-family config for CPU tests).  Data only, with
 the reference's values; ``param_dtype`` is a ``torch.dtype``.  The
-input-shape helpers of ``repro.configs.shapes`` come with the LM models.
+input-shape helpers are in ``repro_torch.configs.shapes``.
 """
 from importlib import import_module
 from typing import Dict

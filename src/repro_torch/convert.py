@@ -12,15 +12,24 @@ device, and back.  :func:`params_from` / :func:`params_to_numpy` carry a
 nested params dict (the MoE block's) into tensors and back, each leaf's
 dtype kept; a bfloat16 leaf (an ``ml_dtypes`` array, recognised by its
 dtype's name, so ``ml_dtypes`` need not be installed) crosses through its
-uint16 bits.
+uint16 bits.  :func:`decode_state_from` / :func:`decode_state_to_numpy`
+carry an LM decode state (a reference ``DecodeState``: stacked KV caches,
+SSD and RG-LRU states, the tail, the encoder output and the position)
+into the port's ``DecodeState`` and back, so a mid-generation state can be
+compared in both directions.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
 
+from .models.attention import KVCache
+from .models.rglru import RGLRUState
+from .models.ssm import SSDState
+from .models.transformer import DecodeState
 from .pic.fields import Fields
 from .pic.grid import Grid2D
 from .pic.laser import LaserAntenna
@@ -39,6 +48,8 @@ __all__ = [
     "slots_to_numpy",
     "params_from",
     "params_to_numpy",
+    "decode_state_from",
+    "decode_state_to_numpy",
 ]
 
 _PARTICLE_LEAVES = ("z", "x", "ux", "uy", "uz", "w", "alive", "q", "m")
@@ -146,3 +157,41 @@ def params_to_numpy(tree: Any) -> Any:
         return {k: params_to_numpy(v) for k, v in tree.items()}
     t = tree.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _state_tree(tree: Any, leaf) -> Any:
+    """``leaf`` over a decode-state tree: dicts of block states, whose
+    ``"kv"``/``"ssd"``/``"rg"`` entries become the port's NamedTuples."""
+    kinds = {"kv": KVCache, "ssd": SSDState, "rg": RGLRUState}
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {
+            k: (kinds[k](*(leaf(getattr(v, f)) for f in kinds[k]._fields)) if k in kinds
+                else _state_tree(v, leaf))
+            for k, v in tree.items()
+        }
+    return leaf(tree)
+
+
+def decode_state_from(state, device):
+    """The port's ``DecodeState`` on ``device`` from one with the
+    reference's fields (``caches``, ``tail``, ``enc_out``, ``position``;
+    leaves numpy, ``ml_dtypes`` bfloat16 or tensors), each leaf's dtype
+    kept."""
+    return _decode_state(state, partial(_param_tensor, device=device))
+
+
+def _decode_state(state, leaf):
+    return DecodeState(
+        caches=_state_tree(state.caches, leaf),
+        tail=_state_tree(state.tail, leaf),
+        enc_out=_state_tree(state.enc_out, leaf),
+        position=leaf(state.position),
+    )
+
+
+def decode_state_to_numpy(state):
+    """The port's ``DecodeState`` with numpy leaves (bfloat16 as float32,
+    exact), the counterpart of :func:`decode_state_from`."""
+    return _decode_state(state, params_to_numpy)

@@ -5,11 +5,25 @@ Models are plain nested dicts of tensors and pure functions, with the
 reference's keys, so a reference params tree converts leaf for leaf
 (``repro_torch.convert.params_from``).  ``ModelConfig`` keeps the
 reference's fields; its ``param_dtype`` is a ``torch.dtype``.
-``ModelConfig.n_params`` and ``init_params_shapes`` call the transformer's
-``init_params`` and come with the LM models.
+``ModelConfig.n_params`` counts the elements of ``init_params_shapes``, the
+transformer's params built on the ``meta`` device (shapes and dtypes, no
+allocation, no draws).
+
+Products follow ``jnp``'s type promotion (:func:`promoted`, :func:`mm`):
+``torch.matmul`` and ``torch.einsum`` refuse mixed dtypes, where ``jnp``
+computes a float32 operand against a bfloat16 one in float32.  The
+activations are written as ``jax.nn`` composes them (``sigmoid`` as XLA
+expands ``logistic``: ``1 / (1 + exp(-x))``), one rounding per operation in
+the input's dtype, with scalar constants first rounded to that dtype as
+``jnp`` does with weak types: in bfloat16 ``torch.nn.functional``'s fused
+forms round once and differ from the reference in a third of the
+elements.  RoPE's frequencies and the sinusoid scales are computed once
+per device and cached, and the angles on the tensors' device, so a decode
+step uploads nothing from the host.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, replace
 from typing import Any, Optional, Sequence, Tuple
@@ -22,10 +36,20 @@ __all__ = [
     "ParamSpec",
     "constrain_batch",
     "init_dense",
+    "init_zeros",
+    "param_device",
+    "promoted",
+    "mm",
+    "einsum",
+    "sigmoid",
+    "silu",
+    "gelu_tanh",
+    "softplus",
     "rmsnorm",
     "apply_rope",
     "rope_freqs",
-    "sinusoidal_positions",
+    "sinusoidal_rows",
+    "init_params_shapes",
 ]
 
 
@@ -90,8 +114,22 @@ class ModelConfig:
             return self.vocab
         return int(-(-self.vocab // self.vocab_pad_to) * self.vocab_pad_to)
 
+    @property
+    def n_params(self) -> int:
+        """Total parameter count (for 6ND model-flops accounting), from the
+        params tree built on the ``meta`` device."""
+        return int(sum(t.numel() for t in _leaves(init_params_shapes(self))))
+
     def scaled(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
+
+
+def _leaves(tree: Any):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 # A parameter's logical axes (a parallel tree of axis tuples made at init).
@@ -105,16 +143,29 @@ def constrain_batch(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def param_device(gen: Optional[torch.Generator]) -> torch.device:
+    """Where params drawn from ``gen`` live: the generator's device, or
+    ``meta`` for ``None`` (shapes only)."""
+    return torch.device("meta") if gen is None else gen.device
+
+
+def init_zeros(gen: Optional[torch.Generator], shape: Sequence[int], dtype: torch.dtype) -> torch.Tensor:
+    return torch.zeros(tuple(shape), dtype=dtype, device=param_device(gen))
+
+
 def init_dense(
-    gen: torch.Generator,
+    gen: Optional[torch.Generator],
     shape: Sequence[int],
     dtype: torch.dtype,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Truncated normal on [-2, 2] times ``scale`` (default 1/sqrt(fan_in)),
-    drawn in float32 from ``gen`` on the generator's device, then cast.
-    The draws are not the reference's (the JAX PRNG is not reproduced);
-    the distribution is."""
+    drawn in float32 from ``gen`` on the generator's device, then cast
+    (with ``gen=None``: an empty ``meta`` tensor, no draw).  The draws are
+    not the reference's (the JAX PRNG is not reproduced); the distribution
+    is."""
+    if gen is None:
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     if scale is None:
         scale = 1.0 / np.sqrt(shape[0])
     # inverse CDF: u uniform on [Phi(-2), Phi(2)] -> sqrt(2)·erfinv(2u - 1)
@@ -129,6 +180,52 @@ def _norm_cdf(x: float) -> float:
     return 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))
 
 
+def promoted(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The operands cast to their promoted dtype, as ``jnp`` products do."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t.to(dt) for t in ts)
+
+
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype."""
+    return torch.matmul(*promoted(x, w))
+
+
+def einsum(eq: str, *ts: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum`` in the promoted dtype."""
+    return torch.einsum(eq, *promoted(*ts))
+
+
+def _weak(c: float, dtype: torch.dtype) -> float:
+    """A Python constant rounded to ``dtype``, as ``jnp`` casts a weakly
+    typed scalar before the operation."""
+    return float(torch.tensor(c, dtype=dtype))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``, as XLA expands ``logistic``."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * sigmoid(x)``."""
+    return x * sigmoid(x)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` with its default tanh approximation, op for op."""
+    c = _weak(float(np.sqrt(2 / np.pi)), x.dtype)
+    cdf = _weak(0.5, x.dtype) * (1.0 + torch.tanh(c * (x + _weak(0.044715, x.dtype) * (x * (x * x)))))
+    return x * cdf
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``jnp.logaddexp(x, 0)`` as jax writes it."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dtype = x.dtype
     x = x.float()
@@ -137,14 +234,19 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Te
     return (out * (1.0 + gamma.float())).to(dtype)
 
 
-def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
-    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+@functools.lru_cache(maxsize=None)
+def rope_freqs(head_dim: int, theta: float, device=torch.device("cpu")) -> torch.Tensor:
+    """``1 / theta**(2i / head_dim)`` as float32 on ``device``: computed
+    there in float64 and cast, as the reference casts its numpy table.
+    One shared tensor per (head_dim, theta, device), so no call after the
+    first computes or uploads it; do not write to it."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float64, device=device) / head_dim
+    return (1.0 / torch.pow(theta, exps)).float()
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding.  x: (..., S, H, hd); positions: (..., S)."""
-    hd = x.shape[-1]
-    freqs = torch.as_tensor(rope_freqs(hd, theta), dtype=torch.float32).to(x.device)
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
     angles = positions[..., None].float() * freqs  # (..., S, hd/2)
     cos = torch.cos(angles)[..., None, :]  # (..., S, 1, hd/2)
     sin = torch.sin(angles)[..., None, :]
@@ -153,12 +255,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def sinusoidal_positions(seq: int, d_model: int) -> np.ndarray:
-    """Whisper-style sinusoidal position embeddings (length-agnostic)."""
-    pos = np.arange(seq)[:, None]
-    dim = np.arange(0, d_model, 2)[None, :]
-    angle = pos / (10_000 ** (dim / d_model))
-    out = np.zeros((seq, d_model), np.float32)
-    out[:, 0::2] = np.sin(angle)
-    out[:, 1::2] = np.cos(angle)
-    return out
+@functools.lru_cache(maxsize=None)
+def _sinusoid_scales(d_model: int, device: torch.device) -> torch.Tensor:
+    """``10000**(2i / d_model)`` in float64 on ``device``, one shared tensor
+    per (d_model, device)."""
+    dim = torch.arange(0, d_model, 2, dtype=torch.float64, device=device)
+    return torch.pow(10_000.0, dim / d_model)
+
+
+def sinusoidal_rows(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Rows ``positions`` of whisper's sinusoidal position table (sin in the
+    even columns, cos in the odd), float32, computed in float64 on the
+    positions' device (no table, no upload)."""
+    pos = positions.to(torch.float64)[..., None]
+    angle = pos / _sinusoid_scales(d_model, positions.device)
+    out = torch.stack([torch.sin(angle), torch.cos(angle)], dim=-1)
+    return out.reshape(*positions.shape, d_model).float()
+
+
+def init_params_shapes(cfg: ModelConfig):
+    """Shape-only params tree: ``init_params`` on the ``meta`` device."""
+    from .transformer import init_params
+
+    return init_params(None, cfg, device="meta")[0]

@@ -8,10 +8,11 @@ work; ``tokens_per_expert``: routed intent, the heuristic), and
 :func:`apply_expert_permutation` is the adoption step of expert DLB.
 
 Params are plain dicts of tensors with the reference's keys.  Products
-follow ``jnp``'s type promotion: float32 traffic against bfloat16 weights
-computes in float32, the weight operand upcast at each product (no float32
-copy of the weights is kept, so an adoption permutes only the bfloat16
-stacks).  The top-k keeps ``jax.lax.top_k``'s order on ties (the lower
+follow ``jnp``'s type promotion (``models.common.promoted``): float32
+traffic against bfloat16 weights computes in float32, the weight operand
+upcast at each product (no float32 copy of the weights is kept, so an
+adoption permutes only the bfloat16 stacks).  The activations compose as
+``jax.nn``'s do (``models.common.silu``, ``gelu_tanh``).  The top-k keeps ``jax.lax.top_k``'s order on ties (the lower
 index first) through a stable descending sort.  Nothing here reads a value
 back to the host.
 """
@@ -24,7 +25,16 @@ import torch
 import torch.nn.functional as F
 
 from .._device import make_generator, to_device
-from .common import ModelConfig, init_dense
+from .common import (
+    ModelConfig,
+    gelu_tanh,
+    init_dense,
+    init_zeros,
+    mm,
+    param_device,
+    promoted,
+    silu,
+)
 
 __all__ = [
     "init_mlp",
@@ -36,22 +46,10 @@ __all__ = [
 ]
 
 
-def _promoted(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """The operands cast to their promoted dtype, as ``jnp`` products do."""
-    dt = ts[0].dtype
-    for t in ts[1:]:
-        dt = torch.promote_types(dt, t.dtype)
-    return tuple(t.to(dt) for t in ts)
-
-
-def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(*_promoted(x, w))
-
-
 def init_mlp(key: Union[int, torch.Generator], cfg: ModelConfig, d_ff: Optional[int] = None,
              *, device=None):
     """``(params, specs)`` of a dense MLP; draws from ``key`` (a generator,
-    or a seed for one on ``device``)."""
+    or a seed for one on ``device``; ``device="meta"`` draws nothing)."""
     gen = make_generator(key, device)
     d_ff = d_ff or cfg.d_ff
     dt = cfg.param_dtype
@@ -65,9 +63,9 @@ def init_mlp(key: Union[int, torch.Generator], cfg: ModelConfig, d_ff: Optional[
     else:  # gelu (whisper)
         params = {
             "w_up": init_dense(gen, (cfg.d_model, d_ff), dt),
-            "b_up": torch.zeros((d_ff,), dtype=dt, device=gen.device),
+            "b_up": init_zeros(gen, (d_ff,), dt),
             "w_down": init_dense(gen, (d_ff, cfg.d_model), dt),
-            "b_down": torch.zeros((cfg.d_model,), dtype=dt, device=gen.device),
+            "b_down": init_zeros(gen, (cfg.d_model,), dt),
         }
         specs = {
             "w_up": ("embed", "ff"),
@@ -80,10 +78,9 @@ def init_mlp(key: Union[int, torch.Generator], cfg: ModelConfig, d_ff: Optional[
 
 def mlp(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.mlp_type == "swiglu":
-        return _mm(F.silu(_mm(x, p["w_gate"])) * _mm(x, p["w_up"]), p["w_down"])
-    # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(_mm(x, p["w_up"]) + p["b_up"], approximate="tanh")
-    return _mm(h, p["w_down"]) + p["b_down"]
+        return mm(silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]), p["w_down"])
+    h = gelu_tanh(mm(x, p["w_up"]) + p["b_up"])
+    return mm(h, p["w_down"]) + p["b_down"]
 
 
 # ---------------------------------------------------------------------------
@@ -95,7 +92,8 @@ def init_moe(key: Union[int, torch.Generator], cfg: ModelConfig, *, device=None)
     """``(params, specs)`` of an MoE block: a float32 router and the
     ``(E, D, F)``/``(E, F, D)`` expert stacks in ``cfg.param_dtype``, plus a
     shared expert when ``cfg.shared_expert``.  Draws from ``key`` (a
-    generator, or a seed for one on ``device``, default ``"cuda"``)."""
+    generator, or a seed for one on ``device``, default ``"cuda"``;
+    ``device="meta"`` draws nothing)."""
     gen = make_generator(key, device)
     E, D, F_ = cfg.n_experts, cfg.d_model, cfg.d_ff
     dt = cfg.param_dtype
@@ -112,7 +110,7 @@ def init_moe(key: Union[int, torch.Generator], cfg: ModelConfig, *, device=None)
         "w_down": ("experts", "ff", "embed"),
     }
     if cfg.shared_expert:
-        sp, ss = init_mlp(gen, cfg, d_ff=cfg.d_ff)
+        sp, ss = init_mlp(gen, cfg, d_ff=cfg.d_ff, device=param_device(gen))
         params["shared"] = sp
         specs["shared"] = ss
     return params, specs
@@ -120,9 +118,9 @@ def init_moe(key: Union[int, torch.Generator], cfg: ModelConfig, *, device=None)
 
 def _expert_ffn(p, expert_in: torch.Tensor) -> torch.Tensor:
     """(E, C, D) -> (E, C, D) through the per-expert SwiGLU weights."""
-    h = F.silu(torch.bmm(*_promoted(expert_in, p["w_gate"])))
-    h = h * torch.bmm(*_promoted(expert_in, p["w_up"]))
-    return torch.bmm(*_promoted(h, p["w_down"]))
+    h = silu(torch.bmm(*promoted(expert_in, p["w_gate"])))
+    h = h * torch.bmm(*promoted(expert_in, p["w_up"]))
+    return torch.bmm(*promoted(h, p["w_down"]))
 
 
 def _expert_ffn_batched(p, expert_in: torch.Tensor) -> torch.Tensor:
@@ -156,7 +154,7 @@ def moe(
     E, K = cfg.n_experts, cfg.top_k
     C = max(1, int(np.ceil(cfg.capacity_factor * S * K / E)))  # per-sequence capacity
 
-    logits = _mm(x.float(), p["router"])  # (B, S, E)
+    logits = mm(x.float(), p["router"])  # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
     # top-k as jax.lax.top_k: descending, the lower index first on a tie
     sorted_vals, sorted_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -178,7 +176,7 @@ def moe(
         expert_in = torch.einsum("bnkec,bnd->becd", dispatch, x)
         combine = dispatch * gate_vals.to(x.dtype)[..., None, None]
         expert_out = _expert_ffn_batched(p, expert_in)  # (B, E, C, D)
-        out = torch.einsum("bnkec,becd->bnd", *_promoted(combine, expert_out))
+        out = torch.einsum("bnkec,becd->bnd", *promoted(combine, expert_out))
     else:
         rows = torch.arange(B, device=x.device)
         slot = torch.where(keep, gate_idx * C + pos, E * C)  # (B, S, K); E*C = spill
@@ -193,8 +191,16 @@ def moe(
         expert_out = _expert_ffn_batched(p, expert_in).reshape(B, E * C, D)
         padded = torch.cat([expert_out, expert_out.new_zeros(B, 1, D)], dim=1)
         per_choice = padded[rows[:, None, None], slot]  # (B, S, K, D); spill reads zeros
-        w = torch.where(keep, gate_vals, 0.0).to(x.dtype)
-        out = (w[..., None] * per_choice).sum(2)
+        # the reference's einsum over the K choices, accumulated as a
+        # contraction accumulates: in at least float32, each choice added
+        # with one fused multiply-add, one rounding to x's dtype at the end
+        acc = torch.promote_types(x.dtype, torch.float32)
+        w = torch.where(keep, gate_vals, 0.0).to(x.dtype).to(acc)
+        per_choice = per_choice.to(acc)
+        out = w[..., 0, None] * per_choice[..., 0, :]
+        for k in range(1, K):
+            out = torch.addcmul(out, w[..., k, None], per_choice[..., k, :])
+        out = out.to(x.dtype)
 
     if cfg.shared_expert:
         out = out + mlp(p["shared"], cfg, x.reshape(B * S, D)).reshape(B, S, D)

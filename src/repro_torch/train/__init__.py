@@ -1,2 +1,3 @@
 """Training/serving substrate (counterpart of ``repro.train``): so far the
-host-side ``RequestBalancer`` of the serve step."""
+serve step, its prefill and decode factories and the host-side
+``RequestBalancer``."""

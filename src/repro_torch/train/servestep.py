@@ -1,6 +1,11 @@
-"""Serving-level DLB over request buckets (counterpart of
-``repro.train.servestep``; the prefill and decode step factories come
-with the LM models).
+"""Serve-step factories, prefill and single-token decode with KV caches,
+and serving-level DLB over request buckets (counterpart of
+``repro.train.servestep``).
+
+``make_serve_step`` returns the step of the ``decode_*`` / ``long_*``
+shapes: one new token given a cache holding ``seq_len`` prior context,
+chosen greedily on the device.  ``make_prefill_step`` covers ``prefill_*``
+shapes.
 
 ``RequestBalancer`` treats request *buckets* as work items: measured
 per-bucket decode/prefill times feed the paper's LoadBalancer to assign
@@ -13,10 +18,39 @@ costs the serving tests drive it with.  Host-only.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core import LoadBalancer
+from ..models import ModelConfig, decode_step, prefill
 
-__all__ = ["RequestBalancer"]
+__all__ = ["make_serve_step", "make_prefill_step", "RequestBalancer"]
+
+
+def make_serve_step(cfg: ModelConfig):
+    """Build the single-token decode step (greedy argmax over the real
+    vocab) for the ``decode_*``/``long_*`` serving shapes: maps
+    ``(params, token, state) -> (next_token, new_state)``, the token an
+    int32 (B, 1) tensor on the device.  Like ``decode_step`` it consumes
+    ``state`` (updated in place), and it reads nothing back to the host."""
+
+    def serve_step(params, token, state):
+        logits, new_state = decode_step(params, cfg, token, state)
+        next_token = torch.argmax(logits[..., : cfg.vocab], dim=-1).to(torch.int32)
+        return next_token, new_state
+
+    return serve_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """Build the prefill step for the ``prefill_*`` serving shapes: runs the
+    full prompt through the model and returns the (B, V) last-position
+    logits.  It fills no KV cache, as the reference's ``prefill`` does not
+    (whose factory's docstring says it returns the primed caches)."""
+
+    def prefill_step(params, batch):
+        return prefill(params, cfg, batch)
+
+    return prefill_step
 
 
 class RequestBalancer:

@@ -2,7 +2,9 @@
 reference's (``repro_torch.models.common``, ``repro_torch.configs``,
 ``repro_torch.models.moe.init_moe``, ``repro_torch.convert.params_from``).
 
-Exact: ``rope_freqs``, ``sinusoidal_positions`` (the same numpy code),
+Exact: ``rope_freqs`` and ``sinusoidal_rows`` against the reference's
+numpy ``rope_freqs`` (cast to float32, as its ``apply_rope`` casts it) and
+``sinusoidal_positions``,
 every ``CONFIG`` and ``SMOKE`` field by field (``param_dtype`` mapped from
 the jnp dtype to the torch dtype), the reference's params carried across
 bit for bit.  ``rmsnorm`` in float32 within rtol 1e-6 (``rsqrt`` may round
@@ -58,8 +60,10 @@ def test_rmsnorm_matches_reference(dtype):
 
 def test_rope_freqs_and_sinusoidal_positions_exact():
     for hd, theta in ((16, 10_000.0), (128, 500_000.0)):
-        np.testing.assert_array_equal(common.rope_freqs(hd, theta), ref_common.rope_freqs(hd, theta))
-    np.testing.assert_array_equal(common.sinusoidal_positions(37, 64),
+        got = common.rope_freqs(hd, theta)
+        assert got.dtype == torch.float32 and got is common.rope_freqs(hd, theta)
+        np.testing.assert_array_equal(got.numpy(), ref_common.rope_freqs(hd, theta).astype(np.float32))
+    np.testing.assert_array_equal(common.sinusoidal_rows(torch.arange(37), 64).numpy(),
                                   ref_common.sinusoidal_positions(37, 64))
 
 
@@ -187,3 +191,43 @@ def test_default_device_is_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
         init_moe(0, _moe_cfgs()["toy-f32"])
+
+
+def test_sinusoidal_rows_match_the_table():
+    """Rows computed on the positions' device equal ``sinusoidal_positions``
+    (the reference's numpy table) to float32 rounding."""
+    table = ref_common.sinusoidal_positions(50, 64)
+    rows = common.sinusoidal_rows(torch.tensor([0, 7, 49, 3]), 64)
+    np.testing.assert_allclose(rows.numpy(), table[[0, 7, 49, 3]], rtol=0, atol=1e-7)
+    one = common.sinusoidal_rows(torch.tensor(12, dtype=torch.int32), 64)
+    assert tuple(one.shape) == (64,) and one.dtype == torch.float32
+    np.testing.assert_allclose(one.numpy(), table[12], rtol=0, atol=1e-7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["sigmoid", "silu", "gelu_tanh", "softplus"])
+def test_activations_match_jax_nn(name, dtype):
+    """The activations as ``jax.nn`` composes them: in bfloat16 equal to the
+    reference's bit for bit on all but a few elements (one rounding per
+    operation, constants rounded to the dtype first), in float32 within 4
+    ulps or 1e-6 (the elementary functions of XLA and torch differ by ulps,
+    which near tanh's saturation leave small values relatively far
+    apart)."""
+    ref = {"sigmoid": jax.nn.sigmoid, "silu": jax.nn.silu, "gelu_tanh": jax.nn.gelu,
+           "softplus": jax.nn.softplus}[name]
+    x = (3 * np.random.default_rng(7).standard_normal(20_000)).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    want = np.asarray(jax.jit(ref)(jnp.asarray(x, jdt)).astype(jnp.float32))
+    got = getattr(common, name)(torch.from_numpy(x).to(tdt)).float().numpy()
+    if dtype == "bfloat16":
+        assert np.mean(got != want) < 1e-3, np.mean(got != want)
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+        assert np.all(np.abs(got - want) <= ulp)
+    else:
+        np.testing.assert_allclose(got, want, rtol=4 * 2.0**-23, atol=1e-6)
+
+
+def test_n_params_counts_the_meta_tree():
+    for arch in ("qwen3-14b", "recurrentgemma-9b", "whisper-medium"):
+        assert get_config(arch).n_params == ref_get_config(arch).n_params
+    assert get_config("qwen3-14b").n_params == 14_769_617_920

@@ -50,8 +50,22 @@ def test_port_imports_without_jax():
                    "dist.sharded_runtime", "dist.box_runtime", "core.perfmodel",
                    "pic.sharded", "pic.engine", "models.common", "models.moe",
                    "configs", "configs.llama4_scout_17b_a16e", "serve.traffic",
-                   "serve.expert_runtime", "train.servestep", "kernels.ref"):
+                   "serve.expert_runtime", "train.servestep", "kernels.ref",
+                   "models.attention", "models.ssm", "models.rglru", "models.transformer",
+                   "configs.shapes"):
         assert f"repro_torch.{module}" in names, module
+
+
+def test_lm_serving_entry_points_are_exported():
+    """The LM serving path: the models package's entry points and the
+    serve-step factories beside ``RequestBalancer``."""
+    import repro_torch.models as models
+    from repro_torch.train import servestep
+
+    for name in ("init_params", "forward_train", "prefill", "decode_step", "init_decode_state"):
+        assert callable(getattr(models, name)), name
+    for name in ("make_serve_step", "make_prefill_step", "RequestBalancer"):
+        assert name in servestep.__all__ and callable(getattr(servestep, name)), name
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
