@@ -157,6 +157,28 @@ Phases (any failure exits non-zero before the result line):
         reference's decode applies RoPE in the decoder's self-attention and
         its forward does not, so the two compute different functions.
 
+  10. the training path (no PIC kernel launches here; the counts must stay
+      0):
+     a. every SMOKE config, params made on the CPU from one generator and
+        copied, a 4 x 16 ``SyntheticLMData`` batch, card vs CPU: with
+        float32 params ``loss_fn`` (rtol 1e-5), its gradients (per leaf
+        within 1e-4·|g| + the CPU tests' atol·max|g|), MoE stats equal,
+        and one ``grad_accum=2`` step (loss rtol 1e-5, params within 2·lr);
+        with bfloat16 params the same step's gaps reported, the
+        embedding's gradient among them;
+     b. Qwen3-14B at full width with 4 of its 40 layers (2,878,388,224
+        bf16 params drawn on the card), ``SyntheticLMData(seed=0)`` 2 x
+        4096 tokens as 2 microbatches, per-layer remat: 3 steps (the first
+        under ``torch.profiler``: host launches, busy share, device time of
+        the forward+backward, accumulation and optimizer spans), ms/step
+        (host clock, median after the first), tokens/s, the share of the
+        bf16 products bound, peak memory against the 16 B/param of static
+        state; then one step with int8 compression;
+     c. mamba2-780m at full width and depth, 2 steps at 1 x 2048;
+     d. restart: yi-9b SMOKE, 5 steps with a checkpoint at step 3 through
+        the port's ``CheckpointManager``, restored and replayed, losses
+        within rtol 1e-6.
+
 The last lines are the phase times, the kernels' JSON record, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/repro_torch`` beside this file, it exits 2
@@ -2252,6 +2274,365 @@ def lm_phase(smi: str) -> None:
     log(f"lm: phase 9 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the training path
+# ---------------------------------------------------------------------------
+
+#: each SMOKE config's gradient atol relative to the leaf's max|g|: twice
+#: the float32-vs-float64 gap measured on the CPU
+#: (``tests/test_torch_trainstep.py``, ``GRAD_ATOL_REL_BY_ARCH``)
+TRAIN_GRAD_ATOL_REL = {
+    "recurrentgemma-9b": 2.5e-6, "whisper-medium": 2.0e-6, "qwen3-14b": 1.9e-6,
+    "yi-9b": 1.8e-6, "phi3-medium-14b": 1.8e-6, "qwen2.5-32b": 2.7e-6,
+    "mamba2-780m": 5.4e-6, "mixtral-8x7b": 2.1e-6, "llama4-scout-17b-a16e": 8.3e-6,
+    "qwen2-vl-72b": 2.2e-6,
+}
+#: the train step's learning rate (``make_train_step``'s default)
+TRAIN_LR = 3e-4
+#: Qwen3-14B at full width, depth cut: layers (of 40), global batch,
+#: sequence (train_4k's), microbatches, plain steps (then one compressed)
+TRAIN_QWEN = dict(n_layers=4, batch=2, seq=4096, grad_accum=2, steps=3)
+#: mamba2-780m at full width and depth
+TRAIN_MAMBA = dict(batch=1, seq=2048, steps=2)
+TRAIN_SPANS = ("train_step/forward_backward", "train_step/accumulate", "train_step/optimizer")
+
+
+def _grads_of_loss(params, cfg, batch):
+    """{path: grad} of ``loss_fn`` over the batch, and (loss, metrics)."""
+    import torch
+
+    from repro_torch.models import loss_fn
+
+    flat = _lm_flat(params)
+    for t in flat.values():
+        t.requires_grad_(True)
+    loss, metrics = loss_fn(params, cfg, batch)
+    loss.backward()
+    grads = {k: torch.zeros_like(t) if t.grad is None else t.grad for k, t in flat.items()}
+    for t in flat.values():
+        t.requires_grad_(False)
+        t.grad = None
+    return grads, loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+
+def train_card_vs_cpu_phase() -> None:
+    """Phase 10a: every SMOKE config with params made on the CPU from one
+    generator and copied, a 4 x 16 ``SyntheticLMData`` batch: float32
+    params, ``loss_fn``'s loss (rtol 1e-5), gradients (per leaf, 1e-4·|g|
+    + the CPU tests' atol·max|g|) and MoE stats (equal), then one
+    ``grad_accum=2`` step: its loss (rtol 1e-5) and new params (within
+    2·lr; the share beyond 1e-5·max|p| reported); then the same step with
+    bfloat16 params, reported: the loss, the params and the embedding's
+    gradient (bf16 scatter-adds of repeated rows) card vs CPU."""
+    import torch
+
+    from repro_torch._device import map_tensors
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import init_params
+    from repro_torch.train.trainstep import init_train_state, make_train_step
+
+    f32_lines, bf16_lines = [], []
+    for arch in ARCH_IDS:
+        for dtype in (torch.float32, torch.bfloat16):
+            cfg = get_config(arch, smoke=True).scaled(param_dtype=dtype)
+            params_cpu, _ = init_params(torch.Generator().manual_seed(0), cfg)
+            batch_cpu = SyntheticLMData(cfg, 4, 16, seed=3, device="cpu").batch_at(0)
+            res = {}
+            for dev in ("cuda", "cpu"):
+                params = map_tensors(lambda t: t.to(dev, copy=True), params_cpu)
+                batch = {k: v.to(dev) for k, v in batch_cpu.items()}
+                grads, loss, metrics = _grads_of_loss(params, cfg, batch)
+                state, m = make_train_step(cfg, grad_accum=2)(init_train_state(params), batch)
+                if int(state.opt.step) != 1 or not bool(torch.isfinite(m["loss"])):
+                    raise AssertionError(f"train: {arch} {dev}: step {int(state.opt.step)}, loss {float(m['loss'])}")
+                res[dev] = dict(loss=float(loss), step_loss=float(m["loss"]), metrics=metrics,
+                                grads={k: g.float().cpu() for k, g in grads.items()},
+                                params={k: t.float().cpu() for k, t in _lm_flat(state.params).items()})
+            a, b = res["cuda"], res["cpu"]
+            p_far = p_n = 0
+            p_worst = 0.0
+            for k, want in b["params"].items():
+                d = (a["params"][k] - want).abs()
+                p_worst = max(p_worst, float(d.max()))
+                p_far += int((d > 1e-5 * float(want.abs().max())).sum())
+                p_n += d.numel()
+            loss_gap = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+            step_gap = abs(a["step_loss"] - b["step_loss"]) / abs(b["step_loss"])
+            if dtype == torch.bfloat16:
+                g, want = a["grads"]["/embed"], b["grads"]["/embed"]
+                emb = float((g - want).abs().max()) / float(want.abs().max())
+                bf16_lines.append(f"{arch} loss {loss_gap:.2g}, step loss {step_gap:.2g}, params max|d| "
+                                  f"{p_worst:.3g}, embed grad max|d|/max|g| {emb:.3g}")
+                continue
+            if not (loss_gap <= 1e-5 and step_gap <= 1e-5):
+                raise AssertionError(f"train: {arch} loss card vs cpu rel {loss_gap:.3g}, step {step_gap:.3g} > 1e-5")
+            atol_rel, g_worst = TRAIN_GRAD_ATOL_REL[arch], 0.0
+            for k, want in b["grads"].items():
+                scale = float(want.abs().max())
+                excess = float(((a["grads"][k] - want).abs() - 1e-4 * want.abs()).max())
+                if not excess <= atol_rel * scale:
+                    raise AssertionError(f"train: {arch} grad {k} card vs cpu beyond 1e-4·|g| + {atol_rel:g}·max|g|")
+                g_worst = max(g_worst, excess / max(scale, 1e-30))
+            for key in ("tokens_per_expert", "slots_filled"):
+                if key in b["metrics"] and not torch.equal(a["metrics"][key].cpu(), b["metrics"][key]):
+                    raise AssertionError(f"train: {arch} MoE {key} card vs cpu differ")
+            if not p_worst <= 2 * TRAIN_LR:
+                raise AssertionError(f"train: {arch} params after one step max|d| {p_worst:.3g} > 2·lr")
+            f32_lines.append(f"{arch} loss {loss_gap:.2g}/{step_gap:.2g}, grads (excess over 1e-4·|g|) "
+                             f"{g_worst:.2g}·max|g|, params max|d| {p_worst:.2g} ({p_far} of {p_n} beyond "
+                             f"1e-5·max|p|)")
+    log("train: 10a SMOKE configs, float32 params made on the CPU, card vs cpu (loss_fn, its gradients, "
+        "one grad_accum=2 step; held: loss rtol 1e-5, grads 1e-4·|g| + the CPU tests' atol, params "
+        "within 2·lr, MoE stats equal): " + "; ".join(f32_lines))
+    log("train: 10a bfloat16 params, one step card vs cpu (reported): " + "; ".join(bf16_lines))
+
+
+def profile_train_step(step, state, batch):
+    """One train step under ``torch.profiler``: its wall time, host
+    launches, kernels, device busy time, and the kernel time of each
+    ``train_step/*`` span.  A span's kernels are those that start on the
+    device between the start of its device-side annotation and the start
+    of the next span's: the backward's kernels are launched by autograd's
+    device thread, outside the host-side range, and so run after the
+    forward's annotation ends and before the accumulation's begins.
+    Returns (state, metrics, stats)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, kernels, launches = 0.0, 0, 0
+    for ev in prof.key_averages():
+        if ev.key in TRAIN_SPANS:
+            continue
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            if ev.key != "Command Buffer Full":
+                busy_ms += ev.self_device_time_total / 1e3
+                kernels += ev.count
+        elif ev.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx"):
+            launches += ev.count
+    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    marks = sorted((e.time_range.start, e.name) for e in on_device if e.name in TRAIN_SPANS)
+    spans = dict.fromkeys(TRAIN_SPANS, 0.0)
+    spans["before the first span"] = 0.0
+    for e in on_device:
+        if e.name in TRAIN_SPANS or e.name == "Command Buffer Full":
+            continue
+        owner = "before the first span"
+        for t, name in marks:
+            if t > e.time_range.start:
+                break
+            owner = name
+        spans[owner] += e.time_range.elapsed_us() / 1e3
+    return state, metrics, dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=kernels, launches=launches,
+                                spans=spans, n_marks=len(marks))
+
+
+def train_run(cfg, params, data, n_steps: int, grad_accum: int, label: str, smi: str,
+              profile_first: bool = False):
+    """``n_steps`` of ``make_train_step`` on fresh state, each on the host
+    clock closed by one ``synchronize`` (the batch drawn before the clock
+    starts); the first under ``torch.profiler`` with ``profile_first``.
+    Holds finite losses and ``opt.step`` counting 1..n.  Returns (state,
+    step ms list, losses, profile stats or None)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.train.trainstep import init_train_state, make_train_step
+
+    state = init_train_state(params)
+    step = make_train_step(cfg, grad_accum=grad_accum, lr=TRAIN_LR)
+    times, losses, prof = [], [], None
+    for s in range(n_steps):
+        batch = data.batch_at(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if s == 0 and profile_first:
+            state, m, prof = profile_train_step(step, state, batch)
+        else:
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        if int(state.opt.step) != s + 1 or not np.isfinite(losses[-1]):
+            raise AssertionError(f"train: {cfg.name} {label} step {s}: opt.step {int(state.opt.step)}, "
+                                 f"loss {losses[-1]}")
+    return state, times, losses, prof
+
+
+def train_qwen_phase(smi: str) -> None:
+    """Phase 10b: Qwen3-14B at full width, 4 of 40 layers, bf16 params drawn
+    on the card, ``SyntheticLMData(seed=0)`` 2 x 4096 tokens as 2
+    microbatches of 1, per-layer remat: 3 steps (the first profiled), then
+    one step with ``compression=True`` on the same state."""
+    import numpy as np
+    import torch
+
+    from repro_torch._device import map_tensors
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import init_params
+    from repro_torch.train.trainstep import make_train_step
+
+    kw = TRAIN_QWEN
+    cfg = get_config("qwen3-14b").scaled(n_layers=kw["n_layers"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, _ = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    n = _numel(params)
+    if n != cfg.n_params:
+        raise AssertionError(f"train: {cfg.name} params {n} != n_params {cfg.n_params}")
+    data = SyntheticLMData(cfg, kw["batch"], kw["seq"], seed=0, device="cuda")
+    state, times, losses, prof = train_run(cfg, params, data, kw["steps"], kw["grad_accum"], "4 layers",
+                                           smi, profile_first=True)
+    ms = statistics.median(times[1:])
+    tokens = kw["batch"] * kw["seq"]
+    embed = state.params["embed"].numel()
+    n_mm = n - embed  # the embedding is a gather, not a product
+    attn_flops = 12 * kw["batch"] * kw["seq"] ** 2 * cfg.n_heads * cfg.hd * cfg.n_layers
+    flops = 6 * n_mm * tokens + attn_flops
+    flops_6nt = 6 * n * tokens + attn_flops
+    b_ms = flops / PEAK_BF16_PER_S * 1e3
+    static_gb = n * (2 + 2 + 4 + 4 + 4) / 1e9  # params, grads, f32 accumulators, m, v
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    spans = ", ".join(f"{k.split('/')[-1]} {v:.2f} ({100 * v / max(prof['busy_ms'], 1e-9):.1f}%)"
+                      for k, v in prof["spans"].items())
+    log(f"train: 10b {cfg.name} full width (D {cfg.d_model}, H {cfg.n_heads}, K {cfg.n_kv_heads}, hd "
+        f"{cfg.hd}, F {cfg.d_ff}, vocab {cfg.vocab} padded {cfg.vocab_padded}), {cfg.n_layers} of 40 layers, "
+        f"{n:,} params = n_params, bf16; global batch {kw['batch']} x {kw['seq']} as {kw['grad_accum']} "
+        f"microbatches, per-layer remat: steps {', '.join(f'{t:.1f}' for t in times)} ms (host clock; the "
+        f"first profiled), {ms:.1f} ms/step (median after the first), {tokens / ms * 1e3:.0f} tokens/s; "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}; opt.step 1..{kw['steps']}")
+    log(f"train: 10b bound {b_ms:.2f} ms ({flops / 1e12:.2f} TFLOP of products: 6·{n_mm:,}·{tokens} + "
+        f"attention {attn_flops / 1e12:.2f}, at 989 TFLOP/s bf16; recompute not counted), {b_ms / ms:.3f} of it "
+        f"({flops / ms / 1e9:.1f} TFLOP/s); with the embedding counted, 6·N·T + attention = "
+        f"{flops_6nt / 1e12:.2f} TFLOP, {flops_6nt / PEAK_BF16_PER_S * 1e3:.2f} ms, "
+        f"{flops_6nt / PEAK_BF16_PER_S * 1e3 / ms:.3f} of the step; peak memory {peak:.2f} GiB against "
+        f"{static_gb:.2f} GB of static state (16 B/param) ({smi})")
+    log(f"train: 10b profiled first step: {prof['wall_ms']:.1f} ms wall, {prof['launches']} host launches, "
+        f"{prof['kernels']} kernels, device busy {prof['busy_ms']:.1f} ms "
+        f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%); kernel ms by span ({prof['n_marks']} device-side "
+        f"span starts): {spans} ({smi})")
+
+    zeros = lambda t: torch.zeros(t.shape, dtype=torch.float32, device=t.device)  # noqa: E731
+    state = state._replace(opt=state.opt._replace(error_feedback=map_tensors(zeros, state.params)))
+    step = make_train_step(cfg, grad_accum=kw["grad_accum"], lr=TRAIN_LR, compression=True)
+    batch = data.batch_at(kw["steps"])
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    c_ms = (time.perf_counter() - t0) * 1e3
+    loss = float(m["loss"])
+    if int(state.opt.step) != kw["steps"] + 1 or not np.isfinite(loss):
+        raise AssertionError(f"train: compressed step: opt.step {int(state.opt.step)}, loss {loss}")
+    log(f"train: 10b compressed step {kw['steps'] + 1} (int8 + error feedback, {n * 4 / 1e9:.2f} GB more "
+        f"state): {c_ms:.1f} ms, loss {loss:.4f}, grad_norm {float(m['grad_norm']):.4g}, opt.step "
+        f"{int(state.opt.step)}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    del state, params, m
+    torch.cuda.empty_cache()
+
+
+def train_mamba_phase(smi: str) -> None:
+    """Phase 10c: mamba2-780m at full width and depth, 2 steps at 1 x 2048
+    with ``grad_accum=1``: the SSD chunk loop's backward on the card."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import init_params
+
+    kw = TRAIN_MAMBA
+    cfg = get_config("mamba2-780m")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, _ = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    data = SyntheticLMData(cfg, kw["batch"], kw["seq"], seed=0, device="cuda")
+    state, times, losses, _ = train_run(cfg, params, data, kw["steps"], 1, "full", smi)
+    log(f"train: 10c {cfg.name} full width and depth ({cfg.n_layers} layers, D {cfg.d_model}, "
+        f"{_numel(params):,} params, bf16), {kw['batch']} x {kw['seq']}, grad_accum 1: steps "
+        f"{', '.join(f'{t:.1f}' for t in times)} ms (host clock), {kw['seq'] / times[-1] * 1e3:.0f} tokens/s "
+        f"at the last; losses {', '.join(f'{x:.4f}' for x in losses)}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    del state, params
+    torch.cuda.empty_cache()
+
+
+def train_restart_phase() -> None:
+    """Phase 10d: ``tests/test_infra.py::test_checkpoint_restart_resumes_training``
+    on the card: yi-9b SMOKE (bf16), 5 steps, a checkpoint at step 3 through
+    the port's ``CheckpointManager`` with a ``TrainState`` template,
+    restored and steps 3-4 replayed: losses at rtol 1e-6."""
+    import shutil
+
+    import torch
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.convert import train_state_from
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import init_params
+    from repro_torch.train.trainstep import init_train_state, make_train_step
+
+    cfg = get_config("yi-9b", smoke=True)
+    params, _ = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    state = init_train_state(params)
+    step_fn = make_train_step(cfg)
+    data = SyntheticLMData(cfg, batch=4, seq_len=16, seed=42, device="cuda")
+    ckpt_dir = ROOT / "chip_scratch" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        mgr = CheckpointManager(ckpt_dir)
+        losses_a = []
+        for s in range(5):
+            if s == 3:
+                mgr.save(state, step=s)
+            state, m = step_fn(state, data.batch_at(s))
+            losses_a.append(float(m["loss"]))
+        restored, start = mgr.restore(state)
+        state2 = train_state_from(restored, "cuda")
+        losses_b = []
+        for s in range(start, 5):
+            state2, m = step_fn(state2, data.batch_at(s))
+            losses_b.append(float(m["loss"]))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses_a[3:], losses_b))
+    if start != 3 or not rel <= 1e-6:
+        raise AssertionError(f"train: restart replay losses {losses_b} vs {losses_a[3:]} (rel {rel:.3g})")
+    log(f"train: 10d restart on the card (yi-9b SMOKE, bf16): losses {', '.join(f'{x:.6f}' for x in losses_a)}; "
+        f"restored at step {start}, replayed {', '.join(f'{x:.6f}' for x in losses_b)}: max rel {rel:.3g} "
+        f"(held at 1e-6)")
+
+
+def train_phase(smi: str) -> None:
+    """Phase 10: 10a SMOKE configs card vs CPU; 10b Qwen3-14B at full
+    width, 4 layers; 10c mamba2-780m at full width and depth; 10d restart.
+    No PIC kernel launches here."""
+    import torch
+
+    from repro_torch.kernels.deposition import deposit_local_tiles
+    from repro_torch.kernels.gather_push import gather_push_move
+
+    t_phase = time.perf_counter()
+    for fn in (gather_push_move, deposit_local_tiles):
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    train_card_vs_cpu_phase()
+    train_qwen_phase(smi)
+    train_mamba_phase(smi)
+    train_restart_phase()
+    if gather_push_move.launches or deposit_local_tiles.launches:
+        raise AssertionError("train: the training path launched a PIC kernel")
+    log(f"train: phase 10 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").exists():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
@@ -2358,6 +2739,8 @@ def main() -> int:
     mark("8 serving lane")
     lm_phase(smi)
     mark("9 LM serving path")
+    train_phase(smi)
+    mark("10 training path")
     log("time: " + ", ".join(f"phase {label} {t - t_prev:.1f} s" for (_, t_prev), (label, t)
                              in zip(marks, marks[1:])))
 

@@ -16,7 +16,10 @@ uint16 bits.  :func:`decode_state_from` / :func:`decode_state_to_numpy`
 carry an LM decode state (a reference ``DecodeState``: stacked KV caches,
 SSD and RG-LRU states, the tail, the encoder output and the position)
 into the port's ``DecodeState`` and back, so a mid-generation state can be
-compared in both directions.
+compared in both directions.  :func:`train_state_from` /
+:func:`train_state_to_numpy` do the same for a training state (a reference
+``TrainState``: params, and the optimizer's ``step``, ``m``, ``v`` and
+optional ``error_feedback``), leaf for leaf.
 """
 from __future__ import annotations
 
@@ -35,6 +38,8 @@ from .pic.grid import Grid2D
 from .pic.laser import LaserAntenna
 from .pic.particles import Particles
 from .pic.problem import ProblemSetup
+from .train.optimizer import AdamWState
+from .train.trainstep import TrainState
 
 __all__ = [
     "grid_from",
@@ -50,6 +55,8 @@ __all__ = [
     "params_to_numpy",
     "decode_state_from",
     "decode_state_to_numpy",
+    "train_state_from",
+    "train_state_to_numpy",
 ]
 
 _PARTICLE_LEAVES = ("z", "x", "ux", "uy", "uz", "w", "alive", "q", "m")
@@ -195,3 +202,28 @@ def decode_state_to_numpy(state):
     """The port's ``DecodeState`` with numpy leaves (bfloat16 as float32,
     exact), the counterpart of :func:`decode_state_from`."""
     return _decode_state(state, params_to_numpy)
+
+
+def _train_state(state, tree, leaf):
+    opt = state.opt
+    ef = opt.error_feedback
+    return TrainState(
+        params=tree(state.params),
+        opt=AdamWState(step=leaf(opt.step), m=tree(opt.m), v=tree(opt.v),
+                       error_feedback=None if ef is None else tree(ef)),
+    )
+
+
+def train_state_from(state, device) -> TrainState:
+    """The port's ``TrainState`` on ``device`` from one with the reference's
+    fields (``params``; ``opt.step``, ``opt.m``, ``opt.v``,
+    ``opt.error_feedback`` or ``None``; leaves numpy, ``ml_dtypes``
+    bfloat16 or tensors), each leaf's dtype kept."""
+    return _train_state(state, partial(params_from, device=device),
+                        partial(_param_tensor, device=device))
+
+
+def train_state_to_numpy(state) -> TrainState:
+    """The port's ``TrainState`` with numpy leaves (bfloat16 as float32,
+    exact), the counterpart of :func:`train_state_from`."""
+    return _train_state(state, params_to_numpy, params_to_numpy)

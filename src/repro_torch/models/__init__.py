@@ -1,7 +1,6 @@
 """Model building blocks of the port (counterpart of ``repro.models``):
 the config, the MoE block, attention, the SSD and RG-LRU blocks, and the
-transformer's serving path (params, forward, prefill, decode).  The
-training loss comes with the training slice."""
+transformer (params, forward, the training loss, prefill, decode)."""
 from .common import ModelConfig
 from .moe import apply_expert_permutation, expert_costs, init_mlp, init_moe, mlp, moe
 from .transformer import (
@@ -10,6 +9,7 @@ from .transformer import (
     forward_train,
     init_decode_state,
     init_params,
+    loss_fn,
     prefill,
 )
 
@@ -23,6 +23,7 @@ __all__ = [
     "apply_expert_permutation",
     "init_params",
     "forward_train",
+    "loss_fn",
     "prefill",
     "decode_step",
     "init_decode_state",

@@ -14,8 +14,13 @@ heterogeneous stacks (recurrentgemma's r,r,a pattern) stack *groups*, and a
 remainder partial group lives unstacked in ``tail_blocks``.  So a reference
 params tree converts leaf for leaf (``repro_torch.convert.params_from``).
 The reference's ``lax.scan`` over groups becomes a host loop over the group
-index on per-layer views of each leaf; its ``jax.checkpoint`` is for
-training and is left out.
+index on per-layer views of each leaf.  Its per-layer remat
+(``jax.checkpoint`` of the scan body) is carried over: while autograd
+records, each group runs under ``torch.utils.checkpoint`` (non-reentrant),
+so the backward keeps one (B, S, D) boundary activation per group and
+recomputes the group's interior; the remainder blocks run without it, as
+in the reference.  Under ``torch.no_grad`` (prefill, decode) nothing
+changes.  ``loss_fn`` is the training loss on ``forward_train``.
 
 ``decode_step`` updates the decode state **in place** (the KV caches at a
 device index, the recurrent states by copy into their stacked slices) and
@@ -27,9 +32,10 @@ from __future__ import annotations
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import make_generator, map_tensors, resolve_device
-from .attention import attention, decode_attention, init_attention, init_kv_cache
+from .attention import NEG_INF, attention, decode_attention, init_attention, init_kv_cache
 from .common import (
     ModelConfig,
     constrain_batch,
@@ -51,6 +57,7 @@ __all__ = [
     "decode_step",
     "init_decode_state",
     "DecodeState",
+    "loss_fn",
 ]
 
 
@@ -224,20 +231,29 @@ def _apply_block(bp, cfg: ModelConfig, kind: str, x, positions, *, causal=True, 
 
 def _run_stack(stacked, cfg: ModelConfig, kinds, x, positions, *, causal=True,
                use_rope=True, enc_out=None):
-    """A host loop over the stacked groups; accumulates MoE stats."""
+    """A host loop over the stacked groups; accumulates MoE stats.  While
+    autograd records, each group is checkpointed (per-layer remat)."""
     E = cfg.n_experts
     stats = {
         "aux_loss": torch.zeros((), dtype=torch.float32, device=x.device),
         "tokens_per_expert": torch.zeros((E,), dtype=torch.float32, device=x.device),
         "slots_filled": torch.zeros((E,), dtype=torch.float32, device=x.device),
     } if E > 0 else {}
-    for gp in _unstack(stacked):
+
+    def body(x, stats, gp):
         x = constrain_batch(x)
         acc = dict(stats) if stats else None
         for j, kind in enumerate(kinds):
             x = _apply_block(gp[f"{kind}{j}"], cfg, kind, x, positions, causal=causal,
                              use_rope=use_rope, enc_out=enc_out, stats_acc=acc)
-        stats = acc if acc is not None else stats
+        return x, (acc if acc is not None else stats)
+
+    for gp in _unstack(stacked):
+        if torch.is_grad_enabled():
+            x, stats = checkpoint(body, x, stats, gp, use_reentrant=False,
+                                  preserve_rng_state=False)
+        else:
+            x, stats = body(x, stats, gp)
     return x, stats
 
 
@@ -283,6 +299,32 @@ def forward_train(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = mm(x, params["lm_head"])
     return logits, stats
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], aux_weight: float = 0.01):
+    """Mean token cross-entropy over ``labels >= 0`` (float32, the padded
+    vocab columns masked out), plus ``aux_weight`` times the MoE aux loss.
+    Returns (loss, metrics) with the reference's metric keys."""
+    logits, stats = forward_train(params, cfg, batch)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    logits = logits.float()
+    if cfg.vocab_padded != cfg.vocab:  # mask padded vocab columns
+        pad_mask = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab
+        logits = torch.where(pad_mask, NEG_INF, logits)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    loss = nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    metrics = {"ce_loss": loss, "n_tokens": mask.sum()}
+    if stats:
+        loss = loss + aux_weight * stats["aux_loss"]
+        metrics.update(
+            moe_aux_loss=stats["aux_loss"],
+            tokens_per_expert=stats["tokens_per_expert"],
+            slots_filled=stats["slots_filled"],
+        )
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

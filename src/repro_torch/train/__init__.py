@@ -1,3 +1,4 @@
-"""Training/serving substrate (counterpart of ``repro.train``): so far the
-serve step, its prefill and decode factories and the host-side
-``RequestBalancer``."""
+"""Training/serving substrate (counterpart of ``repro.train``): AdamW with
+int8 gradient compression (``optimizer``), the microbatched train step
+(``trainstep``), the serve step's prefill and decode factories and the
+host-side ``RequestBalancer`` (``servestep``)."""

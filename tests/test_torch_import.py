@@ -52,7 +52,8 @@ def test_port_imports_without_jax():
                    "configs", "configs.llama4_scout_17b_a16e", "serve.traffic",
                    "serve.expert_runtime", "train.servestep", "kernels.ref",
                    "models.attention", "models.ssm", "models.rglru", "models.transformer",
-                   "configs.shapes"):
+                   "configs.shapes", "train.optimizer", "train.trainstep", "data",
+                   "data.pipeline"):
         assert f"repro_torch.{module}" in names, module
 
 
@@ -66,6 +67,22 @@ def test_lm_serving_entry_points_are_exported():
         assert callable(getattr(models, name)), name
     for name in ("make_serve_step", "make_prefill_step", "RequestBalancer"):
         assert name in servestep.__all__ and callable(getattr(servestep, name)), name
+
+
+def test_training_entry_points_are_exported():
+    """The training path: ``loss_fn``, the optimizer, the train step and
+    the data pipeline, under the reference's names."""
+    import repro_torch.data as data
+    import repro_torch.models as models
+    from repro_torch.train import optimizer, trainstep
+
+    assert "loss_fn" in models.__all__ and callable(models.loss_fn)
+    assert data.__all__ == ["SyntheticLMData"]
+    for name in ("AdamWState", "adamw_init", "adamw_update", "clip_by_global_norm",
+                 "quantize_int8", "dequantize_int8", "compress_decompress"):
+        assert name in optimizer.__all__ and callable(getattr(optimizer, name)), name
+    for name in ("TrainState", "init_train_state", "make_train_step"):
+        assert name in trainstep.__all__ and callable(getattr(trainstep, name)), name
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
