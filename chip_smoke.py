@@ -178,9 +178,32 @@ Phases (any failure exits non-zero before the result line):
      d. restart: yi-9b SMOKE, 5 steps with a checkpoint at step 3 through
         the port's ``CheckpointManager``, restored and replayed, losses
         within rtol 1e-6.
+     In 10b the bytes of the storages the state and a batch hold on the
+     card are held against the dry run's ``argument_bytes`` of the cell
+     on a 1x1 mesh (bf16 params, float32 m and v, the step, the batch),
+     within 512 B per tensor; the growth of
+     ``torch.cuda.memory_allocated()`` is printed beside them (it adds
+     the caching allocator's rounding).
 
-The last lines are the phase times, the kernels' JSON record, the card's
-name and power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+  11. the launch layer (no PIC kernel launches here; the counts must stay
+      0):
+     a. Qwen3-14B's params at full width with 4 layers (bf16, drawn on the
+        card) placed by ``dist.sharding`` 's rules over
+        ``make_production_mesh()`` (16x16 logical devices on the one card)
+        and over the multi-pod mesh (2x16x16): each logical device's bytes
+        equal to ``argument_bytes`` ' per-chip param bytes on that mesh, and
+        ``gather`` gives the params back bitwise; placement and gather
+        times printed;
+     b. ``lower_cell`` for Qwen3-14B at full depth on ``meta``: train_4k,
+        prefill_32k and decode_32k on the single-pod mesh, decode_32k on
+        the multi-pod one: per-chip argument bytes against 80 GiB,
+        ``flops_per_chip``, the model-FLOPs ratio and the planning time.
+
+``set_performance_flags()`` (``repro_torch.launch.cuda_env``) runs first,
+before CUDA initializes; what it set and the CUDA variables in the
+environment are printed.  The last lines
+are the phase times, the kernels' JSON record, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/repro_torch`` beside this file, it exits 2
 and prints no result.
 """
@@ -188,6 +211,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -197,6 +221,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+
+#: CUDA variables read at CUDA init, printed as the run found them
+CUDA_ENV_VARS = ("PYTORCH_CUDA_ALLOC_CONF", "CUDA_DEVICE_MAX_CONNECTIONS", "CUDA_LAUNCH_BLOCKING")
 
 # H100 SXM data-sheet peaks (dense, 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -1873,6 +1900,13 @@ def _lm_flat(tree, path=""):
     return out
 
 
+def _storage_bytes(tensors) -> int:
+    """Bytes of the distinct storages behind ``tensors``: what they hold on
+    the device, whatever the allocator rounded the blocks up to."""
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes() for t in tensors}
+    return sum(storages.values())
+
+
 def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _lm_flat(tree).values())
 
@@ -2433,19 +2467,18 @@ def profile_train_step(step, state, batch):
                                 spans=spans, n_marks=len(marks))
 
 
-def train_run(cfg, params, data, n_steps: int, grad_accum: int, label: str, smi: str,
+def train_run(cfg, state, data, n_steps: int, grad_accum: int, label: str, smi: str,
               profile_first: bool = False):
-    """``n_steps`` of ``make_train_step`` on fresh state, each on the host
-    clock closed by one ``synchronize`` (the batch drawn before the clock
-    starts); the first under ``torch.profiler`` with ``profile_first``.
-    Holds finite losses and ``opt.step`` counting 1..n.  Returns (state,
-    step ms list, losses, profile stats or None)."""
+    """``n_steps`` of ``make_train_step`` from ``state`` (fresh, consumed),
+    each on the host clock closed by one ``synchronize`` (the batch drawn
+    before the clock starts); the first under ``torch.profiler`` with
+    ``profile_first``.  Holds finite losses and ``opt.step`` counting 1..n.
+    Returns (state, step ms list, losses, profile stats or None)."""
     import numpy as np
     import torch
 
-    from repro_torch.train.trainstep import init_train_state, make_train_step
+    from repro_torch.train.trainstep import make_train_step
 
-    state = init_train_state(params)
     step = make_train_step(cfg, grad_accum=grad_accum, lr=TRAIN_LR)
     times, losses, prof = [], [], None
     for s in range(n_steps):
@@ -2468,27 +2501,50 @@ def train_run(cfg, params, data, n_steps: int, grad_accum: int, label: str, smi:
 def train_qwen_phase(smi: str) -> None:
     """Phase 10b: Qwen3-14B at full width, 4 of 40 layers, bf16 params drawn
     on the card, ``SyntheticLMData(seed=0)`` 2 x 4096 tokens as 2
-    microbatches of 1, per-layer remat: 3 steps (the first profiled), then
-    one step with ``compression=True`` on the same state."""
+    microbatches of 1, per-layer remat: the memory the state and a batch
+    take held against the dry run's plan of the cell on a 1x1 mesh, 3
+    steps (the first profiled), then one step with ``compression=True`` on
+    the same state."""
     import numpy as np
     import torch
 
     from repro_torch._device import map_tensors
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.dryrun import argument_bytes
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import init_params
-    from repro_torch.train.trainstep import make_train_step
+    from repro_torch.train.trainstep import init_train_state, make_train_step
 
     kw = TRAIN_QWEN
     cfg = get_config("qwen3-14b").scaled(n_layers=kw["n_layers"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
     params, _ = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
     n = _numel(params)
     if n != cfg.n_params:
         raise AssertionError(f"train: {cfg.name} params {n} != n_params {cfg.n_params}")
     data = SyntheticLMData(cfg, kw["batch"], kw["seq"], seed=0, device="cuda")
-    state, times, losses, prof = train_run(cfg, params, data, kw["steps"], kw["grad_accum"], "4 layers",
+    state = init_train_state(params)
+    batch0 = data.batch_at(0)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - mem0
+    tensors = [*_lm_flat(state).values(), *batch0.values()]
+    held = _storage_bytes(tensors)
+    t0 = time.perf_counter()
+    by_part = argument_bytes(cfg, "train_4k", make_mesh((1, 1), ("data", "model"), device="meta"),
+                             batch_override=kw["batch"])
+    want = sum(by_part.values())
+    log(f"train: 10b state and batch on the card: {held:,} B of storage; the dry run's argument_bytes on a "
+        f"1x1 mesh ({time.perf_counter() - t0:.2f} s): {want:,} B ({by_part}), {held - want:+,} B over "
+        f"{len(tensors)} tensors (held at 512 B each); memory_allocated grew {grown:,} B "
+        f"({grown - held:+,} B of the allocator's rounding)")
+    if abs(held - want) > 512 * len(tensors):
+        raise AssertionError(f"train: 10b memory {held} B against the plan's {want} B")
+    del batch0
+    state, times, losses, prof = train_run(cfg, state, data, kw["steps"], kw["grad_accum"], "4 layers",
                                            smi, profile_first=True)
     ms = statistics.median(times[1:])
     tokens = kw["batch"] * kw["seq"]
@@ -2547,6 +2603,7 @@ def train_mamba_phase(smi: str) -> None:
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMData
     from repro_torch.models import init_params
+    from repro_torch.train.trainstep import init_train_state
 
     kw = TRAIN_MAMBA
     cfg = get_config("mamba2-780m")
@@ -2554,7 +2611,7 @@ def train_mamba_phase(smi: str) -> None:
     torch.cuda.reset_peak_memory_stats()
     params, _ = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
     data = SyntheticLMData(cfg, kw["batch"], kw["seq"], seed=0, device="cuda")
-    state, times, losses, _ = train_run(cfg, params, data, kw["steps"], 1, "full", smi)
+    state, times, losses, _ = train_run(cfg, init_train_state(params), data, kw["steps"], 1, "full", smi)
     log(f"train: 10c {cfg.name} full width and depth ({cfg.n_layers} layers, D {cfg.d_model}, "
         f"{_numel(params):,} params, bf16), {kw['batch']} x {kw['seq']}, grad_accum 1: steps "
         f"{', '.join(f'{t:.1f}' for t in times)} ms (host clock), {kw['seq'] / times[-1] * 1e3:.0f} tokens/s "
@@ -2633,22 +2690,133 @@ def train_phase(smi: str) -> None:
     log(f"train: phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the launch layer
+# ---------------------------------------------------------------------------
+
+#: Qwen3-14B's layers placed over the production meshes in 11a
+LAUNCH_LAYERS = 4
+#: the dry-run cells of 11b: (shape, mesh)
+LAUNCH_CELLS = (("train_4k", "single"), ("prefill_32k", "single"), ("decode_32k", "single"),
+                ("decode_32k", "multi"))
+HBM_BYTES = 80 * 2**30
+
+
+def launch_placement_phase(smi: str) -> None:
+    """Phase 11a: Qwen3-14B's params at full width with 4 layers (bf16,
+    drawn on the card) placed by the sharding rules over the production
+    meshes' 256 and 512 logical devices on the one card: each logical
+    device's bytes against ``argument_bytes`` ' per-chip param bytes on
+    that mesh, and ``gather`` back bitwise."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import bytes_per_device, default_rules, device_put, gather, tree_shardings
+    from repro_torch.launch.dryrun import argument_bytes
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import init_params
+
+    cfg = get_config("qwen3-14b").scaled(n_layers=LAUNCH_LAYERS)
+    params, axes = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    flat = _lm_flat(params)
+    for multi in (False, True):
+        mesh = make_production_mesh(multi_pod=multi)
+        want = argument_bytes(cfg, "decode_32k", mesh)["params"]
+        shardings = tree_shardings(axes, params, mesh, default_rules(mesh, expert_sharding=cfg.expert_sharding))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        placed = device_put(params, shardings)
+        torch.cuda.synchronize()
+        t_put = time.perf_counter() - t0
+        per_dev = bytes_per_device(placed)
+        t0 = time.perf_counter()
+        back = _lm_flat(gather(placed))
+        torch.cuda.synchronize()
+        t_gather = time.perf_counter() - t0
+        bad = [k for k, t in flat.items()
+               if back[k].dtype != t.dtype or not torch.equal(back[k].view(torch.int16), t.view(torch.int16))]
+        sharded = sum(any(e is not None for e in sh.spec) for sh in _lm_flat(shardings).values())
+        log(f"launch: 11a {cfg.name} {cfg.n_layers} layers ({_nbytes(params) / 1e9:.2f} GB bf16) over "
+            f"{dict(mesh.shape)} = {mesh.size} logical devices on the card ({sharded} of {len(flat)} leaves "
+            f"sharded): device_put {t_put:.2f} s, {per_dev.sum() / 1e9:.2f} GB of blocks, {int(per_dev.min()):,}"
+            f"-{int(per_dev.max()):,} B per logical device against argument_bytes' {want:,}; gather {t_gather:.2f} s, "
+            f"{len(flat) - len(bad)} of {len(flat)} leaves bitwise ({smi})")
+        if not (per_dev == want).all():
+            raise AssertionError(f"launch: per-device bytes {per_dev.min()}-{per_dev.max()} != plan {want}")
+        if bad:
+            raise AssertionError(f"launch: gather differs on {bad}")
+        del placed, back
+        torch.cuda.empty_cache()
+    del params, flat
+    torch.cuda.empty_cache()
+
+
+def launch_dryrun_phase() -> None:
+    """Phase 11b: ``lower_cell`` for Qwen3-14B at full depth on ``meta``:
+    per-chip argument bytes against the card's 80 GiB, FLOPs per chip and
+    the model-FLOPs ratio of each cell."""
+    import io
+
+    from repro_torch.launch.dryrun import lower_cell
+
+    for shape, kind in LAUNCH_CELLS:
+        with contextlib.redirect_stdout(io.StringIO()):  # lower_cell prints its own JSON line
+            r = lower_cell("qwen3-14b", shape, kind)
+        if r["status"] != "ok":
+            raise AssertionError(f"launch: dry run {shape} x {kind}: {r}")
+        mem = r["memory_analysis"]
+        arg = mem["argument_bytes"]
+        log(f"launch: 11b dry run qwen3-14b {shape} x {kind} ({r['n_chips']} chips, {r['scan_info']}): "
+            f"argument {arg:,} B per chip ({arg / HBM_BYTES:.2%} of 80 GiB; by part "
+            f"{mem['argument_bytes_by_part']}), output {mem['output_bytes']:,} B, flops_per_chip "
+            f"{r['flops_per_chip']:.4g}, model_flops {r['model_flops']:.4g} (ratio "
+            f"{r['useful_flops_ratio']:.4f}), plan {r['plan_seconds']:.2f} s")
+        if not r["flops_per_chip"] > 0:
+            raise AssertionError(f"launch: dry run {shape} x {kind}: {r}")
+
+
+def launch_phase(smi: str) -> None:
+    """Phase 11: 11a the placement over the production meshes, 11b the dry
+    run.  No PIC kernel launches here."""
+    import torch
+
+    from repro_torch.kernels.deposition import deposit_local_tiles
+    from repro_torch.kernels.gather_push import gather_push_move
+
+    t_phase = time.perf_counter()
+    for fn in (gather_push_move, deposit_local_tiles):
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    launch_placement_phase(smi)
+    launch_dryrun_phase()
+    if gather_push_move.launches or deposit_local_tiles.launches:
+        raise AssertionError("launch: the launch layer launched a PIC kernel")
+    log(f"launch: phase 11 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "__init__.py").exists():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
         return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.cuda_env import set_performance_flags
+
+    env = set_performance_flags()  # before CUDA initializes, which reads it
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    initialized = torch.cuda.is_initialized()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     smi = nvidia_smi_line()
     log(f"card: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    cuda_vars = {k: v for k, v in os.environ.items() if k in CUDA_ENV_VARS}
+    log(f"env: set_performance_flags() set {env} with torch.cuda.is_initialized() {initialized}; "
+        f"in the environment: {cuda_vars}")
 
     from repro_torch.kernels._build import build_info, load_library, persistent_blocks
 
@@ -2741,6 +2909,8 @@ def main() -> int:
     mark("9 LM serving path")
     train_phase(smi)
     mark("10 training path")
+    launch_phase(smi)
+    mark("11 launch layer")
     log("time: " + ", ".join(f"phase {label} {t - t_prev:.1f} s" for (_, t_prev), (label, t)
                              in zip(marks, marks[1:])))
 

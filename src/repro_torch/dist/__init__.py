@@ -9,8 +9,11 @@ pipelines; ``overlap=True`` splits each step around the current fold).
 per step, each box's state on its own logical device.
 ``recovery.RecoveryRunner`` makes either crash-safe with checkpoints
 (``repro_torch.ckpt``), seeded faults (``faults``) and the elastic device
-set (``elastic``).  ``sharding`` serves only the LM stack and is not ported
-yet (ROADMAP queue 1, slice C).
+set (``elastic``).  ``sharding`` holds the logical-axis rule table the LM
+stack's params, batches and decode states are sharded by (the dry run,
+``repro_torch.launch.dryrun``), the slot-major runtime rules, and the
+placement of a tree over a mesh of logical devices (``device_put``,
+``gather``).
 """
 from .box_runtime import BoxRuntime
 from .collectives import (
@@ -44,6 +47,20 @@ from .runtime_api import (
     validate_pipeline,
 )
 from .sharded_runtime import ShardedRuntime, split_phase_order
+from .sharding import (
+    NamedSharding,
+    P,
+    ShardedTensor,
+    batch_sharding,
+    bytes_per_device,
+    default_rules,
+    device_put,
+    gather,
+    runtime_rules,
+    spec_for,
+    state_shardings,
+    tree_shardings,
+)
 from .straggler import StragglerDetector
 
 __all__ = [
@@ -77,4 +94,16 @@ __all__ = [
     "NeighborExchangeHandle",
     "neighbor_exchange_start",
     "neighbor_exchange_done",
+    "P",
+    "NamedSharding",
+    "ShardedTensor",
+    "batch_sharding",
+    "default_rules",
+    "runtime_rules",
+    "spec_for",
+    "state_shardings",
+    "tree_shardings",
+    "device_put",
+    "gather",
+    "bytes_per_device",
 ]

@@ -53,7 +53,8 @@ def test_port_imports_without_jax():
                    "serve.expert_runtime", "train.servestep", "kernels.ref",
                    "models.attention", "models.ssm", "models.rglru", "models.transformer",
                    "configs.shapes", "train.optimizer", "train.trainstep", "data",
-                   "data.pipeline"):
+                   "data.pipeline", "dist.sharding", "launch.mesh", "launch.cuda_env",
+                   "launch.dryrun"):
         assert f"repro_torch.{module}" in names, module
 
 
