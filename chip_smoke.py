@@ -177,13 +177,24 @@ Phases (any failure exits non-zero before the result line):
      c. mamba2-780m at full width and depth, 2 steps at 1 x 2048;
      d. restart: yi-9b SMOKE, 5 steps with a checkpoint at step 3 through
         the port's ``CheckpointManager``, restored and replayed, losses
-        within rtol 1e-6.
+        within rtol 1e-6;
+     e. 10b's cell planned by ``plan_cell`` on a (1, 2) mesh and, at
+        batch 4, on (2, 1) and (2, 2) meshes, and run on the card on
+        DTensors over a fake process group (rank 0's blocks;
+        ``dryrun.cell_step``): the predicted peak
+        ``argument_bytes + temp_bytes`` against
+        ``torch.cuda.max_memory_allocated()`` less the memory before the
+        arguments, within 10%.
      In 10b the bytes of the storages the state and a batch hold on the
      card are held against the dry run's ``argument_bytes`` of the cell
      on a 1x1 mesh (bf16 params, float32 m and v, the step, the batch),
      within 512 B per tensor; the growth of
      ``torch.cuda.memory_allocated()`` is printed beside them (it adds
-     the caching allocator's rounding).
+     the caching allocator's rounding).  Before the first step the dry
+     run's ``plan_cell`` of the same cell (2 microbatches of 1) predicts
+     the step's peak as ``argument_bytes + temp_bytes``; after the steps
+     it is held against ``torch.cuda.max_memory_allocated()`` less the
+     memory before the state, within 10%.
 
   11. the launch layer (no PIC kernel launches here; the counts must stay
       0):
@@ -194,10 +205,13 @@ Phases (any failure exits non-zero before the result line):
         equal to ``argument_bytes`` ' per-chip param bytes on that mesh, and
         ``gather`` gives the params back bitwise; placement and gather
         times printed;
-     b. ``lower_cell`` for Qwen3-14B at full depth on ``meta``: train_4k,
+     b. ``lower_cell`` for Qwen3-14B at full depth on ``meta`` (the step
+        run on DTensors over the mesh on a fake process group): train_4k,
         prefill_32k and decode_32k on the single-pod mesh, decode_32k on
-        the multi-pod one: per-chip argument bytes against 80 GiB,
-        ``flops_per_chip``, the model-FLOPs ratio and the planning time.
+        the multi-pod one: per-chip argument and temporary bytes against
+        80 GiB, collectives by kind, ``flops_per_chip``,
+        ``bytes_accessed_per_chip``, the model-FLOPs ratio and the
+        planning time.  The whole phase must take at most 60 s.
 
 ``set_performance_flags()`` (``repro_torch.launch.cuda_env``) runs first,
 before CUDA initializes; what it set and the CUDA variables in the
@@ -2511,7 +2525,7 @@ def train_qwen_phase(smi: str) -> None:
     from repro_torch._device import map_tensors
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMData
-    from repro_torch.launch.dryrun import argument_bytes
+    from repro_torch.launch.dryrun import plan_cell
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import init_params
     from repro_torch.train.trainstep import init_train_state, make_train_step
@@ -2534,18 +2548,31 @@ def train_qwen_phase(smi: str) -> None:
     tensors = [*_lm_flat(state).values(), *batch0.values()]
     held = _storage_bytes(tensors)
     t0 = time.perf_counter()
-    by_part = argument_bytes(cfg, "train_4k", make_mesh((1, 1), ("data", "model"), device="meta"),
-                             batch_override=kw["batch"])
-    want = sum(by_part.values())
+    plan = plan_cell(cfg, "train_4k", make_mesh((1, 1), ("data", "model"), device="meta"),
+                     batch_override=kw["batch"], grad_accum=kw["grad_accum"])
+    mem = plan["memory_analysis"]
+    by_part, want, temp = mem["argument_bytes_by_part"], mem["argument_bytes"], mem["temp_bytes"]
     log(f"train: 10b state and batch on the card: {held:,} B of storage; the dry run's argument_bytes on a "
         f"1x1 mesh ({time.perf_counter() - t0:.2f} s): {want:,} B ({by_part}), {held - want:+,} B over "
         f"{len(tensors)} tensors (held at 512 B each); memory_allocated grew {grown:,} B "
         f"({grown - held:+,} B of the allocator's rounding)")
     if abs(held - want) > 512 * len(tensors):
         raise AssertionError(f"train: 10b memory {held} B against the plan's {want} B")
+    predicted = want + temp
+    log(f"train: 10b predicted step peak, before the first step: argument_bytes {want:,} + temp_bytes "
+        f"{temp:,} = {predicted:,} B ({predicted / 2**30:.2f} GiB; the dry run's plan of the cell with "
+        f"{plan['scan_info']['grad_accum']} microbatches of {kw['batch'] // kw['grad_accum']})")
     del batch0
     state, times, losses, prof = train_run(cfg, state, data, kw["steps"], kw["grad_accum"], "4 layers",
                                            smi, profile_first=True)
+    measured = torch.cuda.max_memory_allocated() - mem0
+    gap = predicted / measured - 1
+    log(f"train: 10b peak over {kw['steps']} steps: max_memory_allocated less the memory before the state "
+        f"{measured:,} B ({measured / 2**30:.2f} GiB) against the predicted {predicted:,} B "
+        f"({predicted / 2**30:.2f} GiB): {100 * gap:+.2f}% ({smi})")
+    if abs(gap) > 0.10:
+        raise AssertionError(f"train: 10b predicted peak {predicted} B is {100 * gap:+.1f}% off the "
+                             f"card's {measured} B")
     ms = statistics.median(times[1:])
     tokens = kw["batch"] * kw["seq"]
     embed = state.params["embed"].numel()
@@ -2592,6 +2619,70 @@ def train_qwen_phase(smi: str) -> None:
         f"state): {c_ms:.1f} ms, loss {loss:.4f}, grad_norm {float(m['grad_norm']):.4g}, opt.step "
         f"{int(state.opt.step)}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
     del state, params, m
+    torch.cuda.empty_cache()
+
+
+#: 10e's (mesh, global batch, microbatches): 10b's cell tensor-parallel
+#: (2 microbatches of 1, as 10b), data-parallel and both (2 microbatches
+#: of 2, one sequence per data shard in each)
+TRAIN_SHARDED = (((1, 2), 2, 2), ((2, 1), 4, 2), ((2, 2), 4, 2))
+
+
+def train_sharded_phase(smi: str) -> None:
+    """Phase 10e: the dry run's temporaries on sharded meshes against the
+    card's allocator.  For 10b's cell (Qwen3-14B, 4 layers, 4096 tokens a
+    sequence) on each mesh of :data:`TRAIN_SHARDED`, ``plan_cell``
+    predicts rank 0's peak as ``argument_bytes + temp_bytes``; then the
+    same step runs on the card on DTensors over a fake process group of
+    the mesh's size and a ``"cuda"`` ``DeviceMesh`` (``dryrun.cell_step``:
+    rank 0's blocks, zeros; the fake group moves no data, but each
+    collective allocates its output as a real one does), and
+    ``torch.cuda.max_memory_allocated()`` less the memory before the
+    arguments is held to the prediction within 10%."""
+    import gc
+
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import fake_device_mesh
+    from repro_torch.launch.dryrun import cell_step, plan_cell
+    from repro_torch.launch.mesh import make_mesh
+
+    kw = TRAIN_QWEN
+    cfg = get_config("qwen3-14b").scaled(n_layers=kw["n_layers"])
+    for shape, batch, grad_accum in TRAIN_SHARDED:
+        mesh = make_mesh(shape, ("data", "model"), device="meta")
+        plan = plan_cell(cfg, "train_4k", mesh, batch_override=batch, grad_accum=grad_accum)
+        mem = plan["memory_analysis"]
+        predicted = mem["argument_bytes"] + mem["temp_bytes"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        with fake_device_mesh(mesh, "cuda") as device_mesh:
+            step, args = cell_step(cfg, "train_4k", mesh, device_mesh, batch_override=batch,
+                                   grad_accum=grad_accum, device="cuda")
+            t0 = time.perf_counter()
+            with torch.no_grad(), implicit_replication():
+                out = step(*args)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            measured = torch.cuda.max_memory_allocated() - mem0
+            del out, args, step
+        gap = predicted / measured - 1
+        log(f"train: 10e {shape} mesh (batch {batch} x {kw['seq']} as {grad_accum} microbatches, one card for "
+            f"rank 0 on a fake group of {shape[0] * shape[1]}): predicted peak argument_bytes "
+            f"{mem['argument_bytes']:,} + temp_bytes {mem['temp_bytes']:,} = {predicted:,} B ({predicted / 2**30:.2f} GiB; plan "
+            f"{plan['plan_seconds']:.2f} s), card's max_memory_allocated less the memory before the "
+            f"arguments {measured:,} B ({measured / 2**30:.2f} GiB): {100 * gap:+.2f}%; the step "
+            f"{step_s:.1f} s on DTensors; collectives per chip "
+            f"{int(plan['collectives']['total_per_chip_bytes']):,} B ({smi})")
+        if abs(gap) > 0.10:
+            raise AssertionError(f"train: 10e {shape} predicted peak {predicted} B is {100 * gap:+.1f}% off "
+                                 f"the card's {measured} B")
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -2670,8 +2761,9 @@ def train_restart_phase() -> None:
 
 def train_phase(smi: str) -> None:
     """Phase 10: 10a SMOKE configs card vs CPU; 10b Qwen3-14B at full
-    width, 4 layers; 10c mamba2-780m at full width and depth; 10d restart.
-    No PIC kernel launches here."""
+    width, 4 layers; 10c mamba2-780m at full width and depth; 10d restart;
+    10e the dry run's sharded temporaries against the card.  No PIC kernel
+    launches here."""
     import torch
 
     from repro_torch.kernels.deposition import deposit_local_tiles
@@ -2685,6 +2777,7 @@ def train_phase(smi: str) -> None:
     train_qwen_phase(smi)
     train_mamba_phase(smi)
     train_restart_phase()
+    train_sharded_phase(smi)
     if gather_push_move.launches or deposit_local_tiles.launches:
         raise AssertionError("train: the training path launched a PIC kernel")
     log(f"train: phase 10 took {time.perf_counter() - t_phase:.1f} s")
@@ -2700,6 +2793,8 @@ LAUNCH_LAYERS = 4
 LAUNCH_CELLS = (("train_4k", "single"), ("prefill_32k", "single"), ("decode_32k", "single"),
                 ("decode_32k", "multi"))
 HBM_BYTES = 80 * 2**30
+#: phase 11's time limit (the dry run's four cells dominate it)
+LAUNCH_SECONDS = 60
 
 
 def launch_placement_phase(smi: str) -> None:
@@ -2752,9 +2847,11 @@ def launch_placement_phase(smi: str) -> None:
 
 
 def launch_dryrun_phase() -> None:
-    """Phase 11b: ``lower_cell`` for Qwen3-14B at full depth on ``meta``:
-    per-chip argument bytes against the card's 80 GiB, FLOPs per chip and
-    the model-FLOPs ratio of each cell."""
+    """Phase 11b: ``lower_cell`` for Qwen3-14B at full depth on ``meta``,
+    the step run on DTensors over the production mesh: per-chip argument
+    and temporary bytes against the card's 80 GiB, collectives by kind,
+    FLOPs and bytes accessed per chip and the model-FLOPs ratio of each
+    cell."""
     import io
 
     from repro_torch.launch.dryrun import lower_cell
@@ -2765,14 +2862,21 @@ def launch_dryrun_phase() -> None:
         if r["status"] != "ok":
             raise AssertionError(f"launch: dry run {shape} x {kind}: {r}")
         mem = r["memory_analysis"]
-        arg = mem["argument_bytes"]
+        arg, temp = mem["argument_bytes"], mem["temp_bytes"]
+        coll = r["collectives"]
+        kinds = ", ".join(f"{k} {coll['counts'][k]} x {int(b):,} B" for k, b in coll["bytes_by_kind"].items()
+                          if coll["counts"][k])
         log(f"launch: 11b dry run qwen3-14b {shape} x {kind} ({r['n_chips']} chips, {r['scan_info']}): "
             f"argument {arg:,} B per chip ({arg / HBM_BYTES:.2%} of 80 GiB; by part "
-            f"{mem['argument_bytes_by_part']}), output {mem['output_bytes']:,} B, flops_per_chip "
-            f"{r['flops_per_chip']:.4g}, model_flops {r['model_flops']:.4g} (ratio "
+            f"{mem['argument_bytes_by_part']}), temp {temp:,} B ({temp / HBM_BYTES:.2%} of 80 GiB), output "
+            f"{mem['output_bytes']:,} B; collectives per chip {int(coll['total_per_chip_bytes']):,} B ({kinds}); "
+            f"flops_per_chip {r['flops_per_chip']:.4g}, bytes_accessed_per_chip "
+            f"{r['bytes_accessed_per_chip']:.4g}, model_flops {r['model_flops']:.4g} (ratio "
             f"{r['useful_flops_ratio']:.4f}), plan {r['plan_seconds']:.2f} s")
-        if not r["flops_per_chip"] > 0:
+        if not (r["flops_per_chip"] > 0 and r["bytes_accessed_per_chip"] > 0 and temp > 0):
             raise AssertionError(f"launch: dry run {shape} x {kind}: {r}")
+        if kind == "single" and not coll["total_per_chip_bytes"] > 0:
+            raise AssertionError(f"launch: dry run {shape} x {kind} counted no collective: {coll}")
 
 
 def launch_phase(smi: str) -> None:
@@ -2791,7 +2895,10 @@ def launch_phase(smi: str) -> None:
     launch_dryrun_phase()
     if gather_push_move.launches or deposit_local_tiles.launches:
         raise AssertionError("launch: the launch layer launched a PIC kernel")
-    log(f"launch: phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    took = time.perf_counter() - t_phase
+    log(f"launch: phase 11 took {took:.1f} s (at most {LAUNCH_SECONDS} s)")
+    if took > LAUNCH_SECONDS:
+        raise AssertionError(f"launch: phase 11 took {took:.1f} s, over {LAUNCH_SECONDS} s")
 
 
 def main() -> int:

@@ -24,15 +24,25 @@ contiguous copy of its block per mesh position, on that position's
 would report its whole storage, so every block is a copy of its own and
 :func:`bytes_per_device` reads each position's bytes from the storages.
 :func:`gather` reassembles the global tensors.
+
+:func:`fake_device_mesh` and :func:`to_dtensors` place a tree as PyTorch's
+distributed tensors instead, for the dry run: a ``DeviceMesh`` over a fake
+process group of ``mesh.size`` ranks (no communication, this process is
+rank 0), each leaf a ``DTensor`` whose local tensor is rank 0's block.  An
+op on such tensors runs rank 0's share of the work and issues the
+collectives one chip would issue, which the dry run counts.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..launch.mesh import Mesh, as_mesh
 
@@ -49,6 +59,10 @@ __all__ = [
     "device_put",
     "gather",
     "bytes_per_device",
+    "fake_device_mesh",
+    "placements",
+    "to_dtensor",
+    "to_dtensors",
 ]
 
 #: a rule value: one mesh axis, several (sharded jointly), or replicate
@@ -313,3 +327,70 @@ def bytes_per_device(tree) -> np.ndarray:
 
     _map(add, tree, lambda x: isinstance(x, ShardedTensor))
     return total
+
+
+# ---------------------------------------------------------------------------
+# placement as DTensors over a fake process group
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def fake_device_mesh(mesh: Mesh, device_type: str = "cpu"):
+    """A ``DeviceMesh`` with ``mesh`` 's shape and axis names over a fake
+    process group of ``mesh.size`` ranks, this process rank 0.  Its device
+    type is ``"cpu"`` by default, whatever ``mesh`` 's devices, so the plan
+    is the same on every host and makes no CUDA call (DTensor's sharding
+    propagation on a ``"cuda"`` mesh needs a CUDA build; on ``"cpu"`` it
+    replaces an all-to-all by an all-gather of the same input and a local
+    chunk); ``"cuda"`` runs a step's blocks on the card (DTensor moves a
+    block to its mesh's device type).  The group and its sub-groups are
+    destroyed on exit, so ``torch.distributed.is_initialized()`` is False
+    again."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=mesh.size)
+    try:
+        yield init_device_mesh(device_type, tuple(mesh.shape.values()), mesh_dim_names=mesh.axis_names)
+    finally:
+        dist.destroy_process_group()
+
+
+def placements(sharding: NamedSharding, axis_names: Sequence[str]):
+    """The DTensor placements of ``sharding`` over a mesh with
+    ``axis_names``: ``Shard(d)`` on every mesh axis that dim ``d`` 's entry
+    names, ``Replicate()`` elsewhere and on an axis of size 1 (one block is
+    the whole; DTensor refuses to reshape a dim sharded even one way).  A
+    dim split jointly over several axes is sharded on each of them in the
+    mesh's order, the first one major, as ``P(("pod", "data"))`` means (the
+    rules name such axes in mesh order)."""
+    out = [Replicate()] * len(axis_names)
+    for d, entry in enumerate(sharding.spec):
+        axes = _axes_tuple(entry)
+        if list(axes) != sorted(axes, key=axis_names.index):
+            raise ValueError(f"{entry!r} is not in the mesh's axis order {tuple(axis_names)}")
+        for a in axes:
+            if sharding.mesh.shape[a] > 1:
+                out[axis_names.index(a)] = Shard(d)
+    return out
+
+
+def to_dtensor(sharding: NamedSharding, x: torch.Tensor, device_mesh) -> DTensor:
+    """``x`` placed by ``sharding`` as a DTensor on ``device_mesh``: its
+    local tensor is rank 0's block, an empty one on ``meta`` when ``x`` is
+    on ``meta``, else a contiguous copy."""
+    if x.device.type == "meta":
+        local = torch.empty(sharding.shard_shape(x.shape), dtype=x.dtype, device="meta")
+    else:
+        coords = dict.fromkeys(sharding.mesh.axis_names, 0)
+        local = x[sharding.block_index(coords, x.shape)].clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, device_mesh, placements(sharding, device_mesh.mesh_dim_names),
+                              run_check=False, shape=x.shape, stride=x.stride())
+
+
+def to_dtensors(tree, shardings, device_mesh):
+    """:func:`to_dtensor` over every tensor leaf of ``tree`` and the matching
+    ``NamedSharding`` of ``shardings``."""
+    return _map(lambda sh, x: to_dtensor(sh, x, device_mesh), shardings, _is_sharding, tree)

@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .._device import make_generator, resolve_device
 from .common import (
@@ -25,10 +26,13 @@ from .common import (
     apply_rope,
     constrain_batch,
     einsum,
+    even_heads,
     init_dense,
     init_zeros,
+    local_block,
     mm,
     rmsnorm,
+    split_last,
 )
 
 __all__ = ["init_attention", "attention", "decode_attention", "KVCache", "init_kv_cache"]
@@ -73,9 +77,7 @@ def _project_qkv(p, cfg: ModelConfig, x, x_kv):
     v = mm(x_kv, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(*x.shape[:-1], H, hd)
-    k = k.reshape(*x_kv.shape[:-1], K, hd)
-    v = v.reshape(*x_kv.shape[:-1], K, hd)
+    q, k, v = split_last(q, H, hd), split_last(k, K, hd), split_last(v, K, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -110,7 +112,7 @@ def _sdpa(q, k, v, mask):
     B, S, H, hd = q.shape
     K = k.shape[2]
     G = H // K
-    q = q.reshape(B, S, K, G, hd)
+    q = even_heads(q, 2, K).reshape(B, S, K, G, hd)
     scores = einsum("bskgh,btkh->bkgst", q, k).float()
     # jnp.sqrt(hd) is a float32 sqrt; a float64 sqrt rounds to the same float32
     scores = scores / float(np.float32(np.sqrt(hd)))
@@ -185,7 +187,10 @@ def _flash_sdpa(
             m &= (qpos // chunk) == (kpos // chunk)
         return m
 
-    out = torch.empty((B, S, K, G, hd), dtype=q.dtype, device=dev)
+    # buffers made *like* q and its tiles, so a DTensor q gives them its
+    # batch sharding (a plain tensor gives the same buffers as torch.empty)
+    dense = torch.contiguous_format
+    out = torch.empty_like(q, memory_format=dense).view(B, S, K, G, hd)
     for qi in range(nq):
         qtile = q[:, qi * q_block : (qi + 1) * q_block].reshape(B, q_block, K, G, hd)
         if reach is not None:
@@ -194,9 +199,10 @@ def _flash_sdpa(
             blocks = range(first, first + n_kv_needed)
         else:
             blocks = range(nk)
-        m_run = torch.full((B, K, G, q_block), NEG_INF, dtype=torch.float32, device=dev)
-        l_run = torch.zeros((B, K, G, q_block), dtype=torch.float32, device=dev)
-        acc = torch.zeros((B, K, G, q_block, hd), dtype=torch.float32, device=dev)
+        rows = qtile.permute(0, 2, 3, 1, 4)  # (B, K, G, q_block, hd)
+        m_run = torch.full_like(rows[..., 0], NEG_INF, dtype=torch.float32, memory_format=dense)
+        l_run = torch.zeros_like(rows[..., 0], dtype=torch.float32, memory_format=dense)
+        acc = torch.zeros_like(rows, dtype=torch.float32, memory_format=dense)
         for kj in blocks:
             ktile = k[:, kj * kv_block : (kj + 1) * kv_block]
             vtile = v[:, kj * kv_block : (kj + 1) * kv_block]
@@ -213,6 +219,16 @@ def _flash_sdpa(
         blk = acc / torch.clamp(l_run, min=1e-30)[..., None]  # (B,K,G,q_block,hd)
         out[:, qi * q_block : (qi + 1) * q_block] = blk.permute(0, 3, 1, 2, 4).to(q.dtype)
     return out.reshape(B, S, H, hd)
+
+
+def _merge_heads(out: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, H·hd), pinned to the batch axes on both sides
+    of the merge, as q, k and v are (an identity on plain tensors).  Left
+    to DTensor, a head dim sharded inside the heads (a cross-attention
+    cache's hd) or a gradient sharded over the merged heads would have to
+    be merged or split across its shard: torch 2.11 refuses that, and 2.13
+    makes a strided sharding that it then plans by graph search."""
+    return constrain_batch(constrain_batch(out).reshape(*out.shape[:2], -1))
 
 
 def attention(
@@ -247,7 +263,7 @@ def attention(
             mask = _mask(x.shape[1], x_kv.shape[1], 0, causal, cfg.sliding_window,
                          cfg.attn_chunk, device=x.device)
         out = _sdpa(q, k, v, mask)
-    return mm(out.reshape(*x.shape[:-1], -1), p["wo"])
+    return mm(_merge_heads(out), even_heads(p["wo"], 0, cfg.n_heads))
 
 
 # ---------------------------------------------------------------------------
@@ -284,6 +300,24 @@ def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=torch.bfloat
                    v=torch.zeros(shape, dtype=dtype, device=dev), length=length)
 
 
+def _write_slot_(cache: torch.Tensor, idx: torch.Tensor, new: torch.Tensor) -> None:
+    """``cache[:, idx] = new`` in place, ``idx`` a (1,) index on the device.
+    DTensor has no in-place ``index_copy_`` at an index into a sharded dim,
+    so a DTensor cache is written block by block: ``new`` is laid out as
+    the cache's blocks (replicated along the slot dim), and the chip whose
+    block holds the slot writes it while every other chip writes back the
+    entry it holds."""
+    if not isinstance(cache, DTensor):
+        cache.index_copy_(1, idx, new)
+        return
+    block, first, (src,) = local_block(cache, 1, new)
+    n = block.shape[1]
+    local = idx.full_tensor() - first
+    pos = local.clamp(0, n - 1)
+    mine = ((local >= 0) & (local < n)).reshape(1, 1, 1, 1)
+    block.index_copy_(1, pos, torch.where(mine, src, block.index_select(1, pos)))
+
+
 def decode_attention(
     p,
     cfg: ModelConfig,
@@ -299,12 +333,13 @@ def decode_attention(
     if cross_kv is not None:
         k_all, v_all = cross_kv
         B = x.shape[0]
-        q = mm(x, p["wq"]).reshape(B, 1, cfg.n_heads, cfg.hd)
+        q = split_last(mm(x, p["wq"]), cfg.n_heads, cfg.hd)
         if cfg.qk_norm:
             q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        q = constrain_batch(q)
         mask = torch.ones((1, k_all.shape[1]), dtype=torch.bool, device=x.device)
         out = _sdpa(q, k_all, v_all, mask)
-        return mm(out.reshape(B, 1, -1), p["wo"]), cache
+        return mm(_merge_heads(out), even_heads(p["wo"], 0, cfg.n_heads)), cache
 
     B = x.shape[0]
     pos = cache.length  # 0-d absolute position of the new token (on the device)
@@ -313,12 +348,17 @@ def decode_attention(
         posb = pos.reshape(1, 1).expand(B, 1)
         q = apply_rope(q, posb, cfg.rope_theta)
         k_new = apply_rope(k_new, posb, cfg.rope_theta)
+    # the query pinned to the batch axes as the full-sequence path pins it:
+    # with its heads sharded as well, the product's flattened batch dim is a
+    # strided sharding, whose every candidate layout DTensor plans by graph
+    # search (minutes on a pod mesh)
+    q = constrain_batch(q)
 
     T = cache.capacity
     slot = pos % T  # ring-buffer slot (== pos for full caches until wrap)
     idx = slot.reshape(1).long()
-    cache.k.index_copy_(1, idx, k_new.to(cache.k.dtype))
-    cache.v.index_copy_(1, idx, v_new.to(cache.v.dtype))
+    _write_slot_(cache.k, idx, k_new.to(cache.k.dtype))
+    _write_slot_(cache.v, idx, v_new.to(cache.v.dtype))
 
     # absolute position of each slot's entry (RoPE was applied at write time):
     # slot s holds the most recent token with position ≡ s (mod T)
@@ -331,4 +371,4 @@ def decode_attention(
         valid &= (abs_pos // cfg.attn_chunk) == (pos // cfg.attn_chunk)
     out = _sdpa(q, cache.k, cache.v, valid[None, :])
     new_cache = KVCache(k=cache.k, v=cache.v, length=pos + 1)
-    return mm(out.reshape(B, 1, -1), p["wo"]), new_cache
+    return mm(_merge_heads(out), even_heads(p["wo"], 0, cfg.n_heads)), new_cache

@@ -30,6 +30,7 @@ from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 __all__ = [
     "ModelConfig",
@@ -39,8 +40,13 @@ __all__ = [
     "init_zeros",
     "param_device",
     "promoted",
+    "gathered",
+    "local_block",
+    "split_last",
+    "summed",
     "mm",
     "einsum",
+    "even_heads",
     "sigmoid",
     "silu",
     "gelu_tanh",
@@ -137,10 +143,23 @@ ParamSpec = Tuple[str, ...]
 
 
 def constrain_batch(x: torch.Tensor) -> torch.Tensor:
-    """The identity: the reference pins the batch dim to the data-parallel
-    mesh axes; a single controller over logical devices has no sharding
-    constraint to set."""
-    return x
+    """Pin the leading (batch) dim to the data-parallel mesh axes, as the
+    reference's sharding constraint does under a mesh: a DTensor whose
+    batch dim divides the product of its mesh's ``pod`` and ``data`` axes
+    is redistributed to ``Shard(0)`` on those and replicated on the rest.
+    The identity on a plain tensor, on a mesh without those axes (or with
+    them of size 1) and on an indivisible batch (global_batch=1 decode).  Without it, the sharding
+    DTensor propagates from the embedding gather may replicate the whole
+    activation path (the reference measured ~16x per-chip compute and
+    temporaries on train cells)."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names or ()
+    dp = [i for i, a in enumerate(names) if a in ("pod", "data") and mesh.size(i) > 1]
+    if not dp or x.shape[0] % math.prod(mesh.size(i) for i in dp):
+        return x
+    return x.redistribute(mesh, [Shard(0) if i in dp else Replicate() for i in range(mesh.ndim)])
 
 
 def param_device(gen: Optional[torch.Generator]) -> torch.device:
@@ -188,14 +207,85 @@ def promoted(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     return tuple(t.to(dt) for t in ts)
 
 
+def summed(x: torch.Tensor) -> torch.Tensor:
+    """A product's partial sums completed where it is made: a DTensor with
+    ``Partial`` placements (a contraction over a sharded dim) is
+    all-reduced to ``Replicate`` on those mesh axes, as the reference's
+    partitioner reduces a dot's output.  Left partial, DTensor carries the
+    sums into the residual stream and redistributes them again at every
+    non-linear op that meets them.  The identity on a plain tensor."""
+    if isinstance(x, DTensor) and any(p.is_partial() for p in x.placements):
+        return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p for p in x.placements])
+    return x
+
+
+def local_block(x: DTensor, dim: int, *others: DTensor):
+    """For an update of ``x`` block by block along ``dim`` (DTensor has no
+    in-place scatter at an index into a sharded dim): ``x`` 's local block,
+    the global index of the block's first element along ``dim`` (this
+    chip's coordinates on the mesh axes that shard it, the first major),
+    and each of ``others`` laid out as ``x`` 's blocks but whole along
+    ``dim``, as local tensors."""
+    mesh, placements = x.device_mesh, x.placements
+    d = dim % x.ndim
+    block, first = x.to_local(), 0
+    for i, p in enumerate(placements):
+        if p.is_shard(d):
+            if type(p) is not Shard:
+                raise NotImplementedError(f"a strided sharding of dim {d}: {placements}")
+            first = first * mesh.size(i) + mesh.get_local_rank(i)
+    whole = [Replicate() if p.is_shard(d) else p for p in placements]
+    return block, first * block.shape[d], [o.redistribute(mesh, whole).to_local() for o in others]
+
+
+def gathered(x: torch.Tensor, dim: Optional[int] = None, keep_last_axis: bool = False) -> torch.Tensor:
+    """A DTensor redistributed to ``Replicate`` on the mesh axes that shard
+    ``dim`` (every axis when ``dim`` is None), for an op DTensor cannot run
+    on a sharded ``dim``: an in-place scatter at a sharded index, an argmax
+    over a sharded vocabulary.  With ``keep_last_axis`` the last of those
+    axes keeps its shard: torch 2.11's DTensor has no gather strategy for
+    an index whose dim is sharded over several axes (the token ids of a
+    batch split over ``("pod", "data")``).  The identity on a plain tensor
+    and where nothing is gathered."""
+    if not isinstance(x, DTensor):
+        return x
+    pl = list(x.placements)
+    axes = [i for i, p in enumerate(pl) if (not p.is_replicate() if dim is None else p.is_shard(dim % x.ndim))]
+    for i in axes[:-1] if keep_last_axis else axes:
+        pl[i] = Replicate()
+    return x if pl == list(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
+def even_heads(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x`` whose dim ``dim`` holds ``n`` heads: a DTensor sharded along it
+    over mesh axes whose product does not divide ``n`` (40 heads over 16
+    chips) is first gathered along it.  DTensor cannot split an uneven
+    shard into heads, where the reference's partitioner pads it, and the
+    strided sharding it makes of a gradient's heads instead sends every
+    later op's planning to a graph search.  The identity on a plain
+    tensor."""
+    if isinstance(x, DTensor):
+        d = dim % x.ndim
+        if n % math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements) if p.is_shard(d)):
+            x = gathered(x, d)
+    return x
+
+
+def split_last(x: torch.Tensor, n: int, size: int) -> torch.Tensor:
+    """``x`` (..., n * size) as (..., n, size), its ``n`` heads whole on
+    every chip that holds any (:func:`even_heads`)."""
+    x = even_heads(x, -1, n)
+    return x.reshape(*x.shape[:-1], n, size)
+
+
 def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in the promoted dtype."""
-    return torch.matmul(*promoted(x, w))
+    return summed(torch.matmul(*promoted(x, w)))
 
 
 def einsum(eq: str, *ts: torch.Tensor) -> torch.Tensor:
     """``jnp.einsum`` in the promoted dtype."""
-    return torch.einsum(eq, *promoted(*ts))
+    return summed(torch.einsum(eq, *promoted(*ts)))
 
 
 def _weak(c: float, dtype: torch.dtype) -> float:

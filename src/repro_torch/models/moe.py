@@ -27,6 +27,8 @@ import torch.nn.functional as F
 from .._device import make_generator, to_device
 from .common import (
     ModelConfig,
+    constrain_batch,
+    gathered,
     gelu_tanh,
     init_dense,
     init_zeros,
@@ -182,13 +184,19 @@ def moe(
         slot = torch.where(keep, gate_idx * C + pos, E * C)  # (B, S, K); E*C = spill
         # each (token, choice) writes its token index + 1 (0 = empty slot)
         token = torch.arange(1, S + 1, device=x.device)[:, None].expand(S, K).reshape(S * K)
-        token_of_slot = torch.zeros(B, E * C + 1, dtype=torch.int64, device=x.device)
-        token_of_slot.scatter_(1, slot.reshape(B, S * K), token.expand(B, S * K))
+        # DTensor cannot scatter in place at an index sharded over the batch:
+        # the index is replicated first, and the buffer made like it
+        index = gathered(slot).reshape(B, S * K)
+        token_of_slot = index.new_zeros((B, E * C + 1), dtype=torch.int64)
+        token_of_slot.scatter_(1, index, token.expand(B, S * K))
         token_of_slot = token_of_slot[:, : E * C]
         filled = token_of_slot > 0
-        gathered = x[rows[:, None], (token_of_slot - 1).clamp_min(0)]  # (B, E*C, D)
-        expert_in = torch.where(filled[..., None], gathered, 0.0).reshape(B, E, C, D)
-        expert_out = _expert_ffn_batched(p, expert_in).reshape(B, E * C, D)
+        # the slots pinned to the batch axes around the expert reshapes, their
+        # gradients too (DTensor would split and merge the slot dims across a
+        # model-axis shard: strided shardings it plans by graph search)
+        slot_rows = constrain_batch(x[rows[:, None], (token_of_slot - 1).clamp_min(0)])  # (B, E*C, D)
+        expert_in = constrain_batch(torch.where(filled[..., None], slot_rows, 0.0).reshape(B, E, C, D))
+        expert_out = constrain_batch(constrain_batch(_expert_ffn_batched(p, expert_in)).reshape(B, E * C, D))
         padded = torch.cat([expert_out, expert_out.new_zeros(B, 1, D)], dim=1)
         per_choice = padded[rows[:, None, None], slot]  # (B, S, K, D); spill reads zeros
         # the reference's einsum over the K choices, accumulated as a

@@ -19,6 +19,7 @@ import torch
 from .._device import make_generator, resolve_device
 from .common import (
     ModelConfig,
+    constrain_batch,
     einsum,
     init_dense,
     init_zeros,
@@ -78,7 +79,11 @@ def init_ssd(key, cfg: ModelConfig, *, device=None):
 
 def _split_proj(p, cfg, x):
     H, P, N, d_inner, conv_dim = _dims(cfg)
-    proj = mm(x, p["w_in"])
+    # pinned to the batch axes, its gradient too: split into z, x, B, C and
+    # dt across its model-axis shard, and the heads split out of those, the
+    # backward's views are strided shardings that DTensor plans by graph
+    # search (and torch 2.11 refuses)
+    proj = constrain_batch(mm(x, p["w_in"]))
     z, xbc, dt = torch.split(proj, [d_inner, d_inner + 2 * N, H], dim=-1)
     return z, xbc, dt
 
@@ -115,7 +120,9 @@ def ssd_forward(p, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
     z, xbc, dt_raw = _split_proj(p, cfg, u)
     xbc, _ = _causal_conv(xbc, p["conv_w"])
     xh, Bm, Cm = torch.split(xbc, [d_inner, N, N], dim=-1)
-    x = xh.reshape(B, S, H, P).float()
+    # x and y pinned like the projection, so that the backward's gradients
+    # reach the head splits and merges whole on the model axis
+    x = constrain_batch(xh.reshape(B, S, H, P).float())
     Bm = Bm.reshape(B, S, N).float()
     Cm = Cm.reshape(B, S, N).float()
     dt = softplus(dt_raw.float() + p["dt_bias"])  # (B,S,H)
@@ -146,9 +153,9 @@ def ssd_forward(p, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
             "bqn,bqh,bqhp->bhpn", Bq, dtq * decay_tail, xq
         )
         ys.append(y_off + y_diag)
-    y = torch.stack(ys, dim=1).reshape(B, S, H, P)
+    y = constrain_batch(torch.stack(ys, dim=1).reshape(B, S, H, P))
     y = y + x * p["D_skip"][None, None, :, None]
-    y = y.reshape(B, S, d_inner).to(u.dtype)
+    y = constrain_batch(y.reshape(B, S, d_inner).to(u.dtype))
     # gated RMSNorm (mamba2 uses norm(y * silu(z)))
     y = y * silu(z)
     y = rmsnorm(y, p["norm"], cfg.norm_eps)

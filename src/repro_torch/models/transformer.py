@@ -32,6 +32,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from .._device import make_generator, map_tensors, resolve_device
@@ -41,10 +42,13 @@ from .common import (
     constrain_batch,
     init_dense,
     init_zeros,
+    gathered,
+    local_block,
     mm,
     param_device,
     rmsnorm,
     sinusoidal_rows,
+    summed,
 )
 from .moe import init_mlp, init_moe, mlp, moe
 from .rglru import init_rglru_block, init_rglru_state, rglru_decode_step, rglru_forward
@@ -259,7 +263,7 @@ def _run_stack(stacked, cfg: ModelConfig, kinds, x, positions, *, causal=True,
 
 def _embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     tokens = batch["tokens"]
-    x = constrain_batch(params["embed"][tokens].to(cfg.param_dtype))
+    x = constrain_batch(params["embed"][gathered(tokens, 0, keep_last_axis=True)].to(cfg.param_dtype))
     if cfg.n_patches > 0 and "patch_embeds" in batch:
         pe = mm(batch["patch_embeds"].to(cfg.param_dtype), params["patch_proj"])
         n_p = pe.shape[1]
@@ -284,7 +288,7 @@ def forward_train(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                               causal=False, use_rope=False)
         enc_out = rmsnorm(enc_x, params["enc_norm"], cfg.norm_eps)
         dec_pos = sinusoidal_rows(torch.arange(S, device=dev), cfg.d_model).to(cfg.param_dtype)
-        x = params["embed"][tokens].to(cfg.param_dtype) + dec_pos
+        x = params["embed"][gathered(tokens, 0, keep_last_axis=True)].to(cfg.param_dtype) + dec_pos
         x, stats = _run_stack(params["dec_blocks"], cfg, ("a",), x, positions,
                               causal=True, use_rope=False, enc_out=enc_out)
     else:
@@ -301,6 +305,34 @@ def forward_train(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     return logits, stats
 
 
+class _GoldLogit(torch.autograd.Function):
+    """``torch.gather(logits, -1, index)`` for an (..., 1) index, with
+    autograd's own backward (the gradient added into zeros like ``logits``
+    at the index), written so that DTensor can run it.  On a vocab-sharded
+    DTensor the gathered values are partial sums (completed before the
+    caller's select, which DTensor's masked partial cannot follow), and
+    autograd's backward would make its zeros replicated at the logits' global
+    shape: here each chip adds into its own vocab block the gradients whose
+    index falls in it."""
+
+    @staticmethod
+    def forward(ctx, logits, index):
+        ctx.save_for_backward(logits, index)
+        return summed(torch.gather(logits, -1, index))
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, index = ctx.saved_tensors
+        out = torch.zeros_like(logits)
+        if not isinstance(out, DTensor):
+            return out.scatter_add_(-1, index, grad), None
+        block, first, (index, grad) = local_block(out, -1, index, grad)
+        local = index - first
+        mine = (local >= 0) & (local < block.shape[-1])
+        block.scatter_add_(-1, local.clamp(0, block.shape[-1] - 1), torch.where(mine, grad, 0.0))
+        return out, None
+
+
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], aux_weight: float = 0.01):
     """Mean token cross-entropy over ``labels >= 0`` (float32, the padded
     vocab columns masked out), plus ``aux_weight`` times the MoE aux loss.
@@ -313,7 +345,7 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], aux_weight
         pad_mask = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab
         logits = torch.where(pad_mask, NEG_INF, logits)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    gold = _GoldLogit.apply(logits, labels.clamp(min=0).long().unsqueeze(-1))[..., 0]
     nll = (logz - gold) * mask
     loss = nll.sum() / torch.clamp(mask.sum(), min=1.0)
     metrics = {"ce_loss": loss, "n_tokens": mask.sum()}
@@ -443,7 +475,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, state: DecodeStat
     before decoding from it if it is needed again)."""
     cross = cfg.kind == "encdec"
     kinds = ("a",) if cross else cfg.block_pattern
-    x = params["embed"][token].to(cfg.param_dtype)
+    x = params["embed"][gathered(token, 0, keep_last_axis=True)].to(cfg.param_dtype)
     if cross:
         cap = state.caches["a0"]["kv"].k.shape[2]  # (n_layers, B, T, K, hd)
         row = torch.clamp(state.position, max=cap)  # the reference's table has cap + 1 rows

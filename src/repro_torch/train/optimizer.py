@@ -29,6 +29,7 @@ from __future__ import annotations
 from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .._device import map_tensors
 from ..ckpt.checkpoint import _flatten
@@ -61,7 +62,17 @@ def _leaves(tree) -> List[torch.Tensor]:
 
 def _chunks(t: torch.Tensor) -> List[torch.Tensor]:
     """Views of ``t``'s elements, ``CHUNK`` at a time (``t`` must be
-    contiguous: writes to the views are writes to ``t``)."""
+    contiguous: writes to the views are writes to ``t``).  A DTensor that
+    a mesh axis shards is not flattened (that would make every later op on
+    the views pay for a strided sharding): it is one view, or, where its
+    local block holds more than ``CHUNK`` elements and no axis shards its
+    leading dim (a stacked layer axis), views of whole leading rows."""
+    if isinstance(t, DTensor) and any(p.is_shard() for p in t.placements):
+        local = t._local_tensor.numel()
+        if local <= CHUNK or any(p.is_shard(0) for p in t.placements):
+            return [t]
+        rows = max(1, CHUNK // (local // t.shape[0]))
+        return list(t.split(rows))
     flat = t.view(-1)
     return [flat[i : i + CHUNK] for i in range(0, flat.numel(), CHUNK)]
 

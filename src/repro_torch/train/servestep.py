@@ -22,6 +22,7 @@ import torch
 
 from ..core import LoadBalancer
 from ..models import ModelConfig, decode_step, prefill
+from ..models.common import gathered
 
 __all__ = ["make_serve_step", "make_prefill_step", "RequestBalancer"]
 
@@ -35,7 +36,9 @@ def make_serve_step(cfg: ModelConfig):
 
     def serve_step(params, token, state):
         logits, new_state = decode_step(params, cfg, token, state)
-        next_token = torch.argmax(logits[..., : cfg.vocab], dim=-1).to(torch.int32)
+        # gathered over the vocab first: DTensor's argmax over a vocab sharded
+        # on two mesh axes fails
+        next_token = torch.argmax(gathered(logits, -1)[..., : cfg.vocab], dim=-1).to(torch.int32)
         return next_token, new_state
 
     return serve_step

@@ -26,6 +26,7 @@ from __future__ import annotations
 from typing import Any, Dict, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
@@ -47,9 +48,14 @@ def init_train_state(params, *, compression: bool = False) -> TrainState:
 
 def _grad_of(p: torch.Tensor) -> torch.Tensor:
     """``p``'s gradient, taken off ``p`` (zeros where the loss did not reach
-    it, as ``jax.grad`` gives)."""
+    it, as ``jax.grad`` gives).  A DTensor gradient is redistributed to its
+    param's placements: its partial sums over the batch shards are reduced
+    (all-reduced, or reduce-scattered onto a sharded param), the gradient
+    sync of data parallelism."""
     g = torch.zeros_like(p) if p.grad is None else p.grad
     p.grad = None
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        g = g.redistribute(p.device_mesh, p.placements)
     return g
 
 
@@ -90,7 +96,8 @@ def make_train_step(
                 if B % grad_accum:
                     raise ValueError(f"batch {B} does not split into {grad_accum} microbatches")
                 n = B // grad_accum
-                grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+                grads = [torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
+                         for p in leaves]
                 l_sum = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
                 for i in range(grad_accum):
                     l, _ = microbatch(params, {k: v[i * n : (i + 1) * n] for k, v in batch.items()})

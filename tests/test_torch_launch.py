@@ -8,9 +8,12 @@ the reference's ``launch`` where it has a counterpart.
 * ``plan_cell``'s per-chip argument bytes equal to the sum over the
   reference's shard shapes of its ``eval_shape`` state (the arguments its
   ``lower_cell`` compiles), and ``scan_info`` equal to its formula;
-* the FLOPs ``step_flops`` counts on ``meta`` (one and two layer groups,
+* the FLOPs ``step_counts`` counts on ``meta`` (two and three layer groups,
   extended to the full depth) equal to ``FlopCounterMode`` over the same
-  step at full depth on real CPU tensors, for every SMOKE config and mode.
+  step at full depth on real CPU tensors, for every SMOKE config and mode;
+* ``plan_cell`` 's collectives, temporaries and bytes accessed counted
+  (``tests/test_torch_partition.py`` holds them to the reference's
+  partitioned program and to exact counts).
 
 The reference's dry run fakes 512 host devices through ``XLA_FLAGS`` when
 it is imported; the fixture initializes jax's backend first and restores
@@ -174,7 +177,10 @@ def test_plan_argument_bytes_and_scan_info_match_reference(ref_dryrun, arch, sha
     assert mem["argument_bytes"] == sum(mem["argument_bytes_by_part"].values())
     assert plan["scan_info"] == _ref_scan_info(arch, shape, amesh, rules)
     assert plan["n_chips"] == math.prod(amesh.shape.values())
-    assert plan["collectives"] is None and mem["temp_bytes"] is None
+    coll = plan["collectives"]
+    assert set(coll) == {"bytes_by_kind", "counts", "total_per_chip_bytes"}
+    assert coll["total_per_chip_bytes"] == sum(coll["bytes_by_kind"].values()) > 0
+    assert mem["temp_bytes"] > 0 and plan["bytes_accessed_per_chip"] > 0
     assert plan["flops_per_chip"] > 0 and 0 < plan["useful_flops_ratio"] < 1
     if shape == "train_4k":  # params + m + v + the replicated step + the batch
         by = mem["argument_bytes_by_part"]
@@ -217,12 +223,13 @@ B, S, ACCUM = 2, 32, 2
 
 
 def _deeper(cfg):
-    """The SMOKE config with three groups per stack (and a tail where the
-    pattern allows one), so the count is extended past what it ran."""
+    """The SMOKE config with five groups per stack (and a tail where the
+    pattern allows one): ``step_counts`` runs two and three groups, so its
+    count is extended two groups past the deepest step it ran."""
     if cfg.kind == "encdec":
-        return cfg.scaled(n_layers=3, n_enc_layers=4)
+        return cfg.scaled(n_layers=5, n_enc_layers=6)
     pat = len(cfg.block_pattern)
-    return cfg.scaled(n_layers=3 * pat + (pat > 1))
+    return cfg.scaled(n_layers=5 * pat + (pat > 1))
 
 
 def _args(cfg, mode, device, gen=None):
@@ -257,7 +264,7 @@ def _args(cfg, mode, device, gen=None):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_step_flops_on_meta_equal_a_real_run(arch, mode):
     cfg = _deeper(get_config(arch, smoke=True))
-    flops, _ = dryrun.step_flops(cfg, lambda c: _args(c, mode, "meta"))
+    flops = dryrun.step_counts(cfg, lambda c: _args(c, mode, "meta"))[0]["flops"]
     step, args = _args(cfg, mode, "cpu", torch.Generator().manual_seed(0))
     with FlopCounterMode(display=False) as fc, torch.no_grad():
         step(*args)
@@ -274,14 +281,12 @@ def test_step_flops_counts_what_flop_counter_mode_counts_on_meta():
     old = attention.FLASH_THRESHOLD
     attention.FLASH_THRESHOLD = 16
     try:
-        counter = dryrun.StepFlops()
-        with counter, torch.no_grad():
-            step(*args)
+        flops = dryrun.count_step(dryrun.StepCount(), step, args)[0]["flops"]
         with FlopCounterMode(display=False) as fc, torch.no_grad():
             step(*args)
     finally:
         attention.FLASH_THRESHOLD = old
-    assert counter.flops == fc.get_total_flops() > 0
+    assert flops == fc.get_total_flops() > 0
 
 
 # ---------------------------------------------------------------------------
@@ -398,7 +403,8 @@ def test_cli_writes_a_cell(tmp_path):
     assert 'DONE {"ok": 1, "skipped": 0, "error": 0}' in out.stdout
     cell = json.loads((tmp_path / "qwen3-14b__decode_32k__single.json").read_text())
     assert cell["status"] == "ok" and cell["n_chips"] == 256
-    assert cell["collectives"] is None and cell["notes"]["collectives"]
+    assert cell["collectives"]["total_per_chip_bytes"] > 0 and cell["notes"]["collectives"]
+    assert sum(cell["collectives"]["counts"].values()) > 0
     mem = cell["memory_analysis"]
-    assert mem["argument_bytes"] > 0 and mem["output_bytes"] > 0 and mem["temp_bytes"] is None
-    assert cell["flops_per_chip"] > 0 and cell["plan_seconds"] >= 0
+    assert mem["argument_bytes"] > 0 and mem["output_bytes"] > 0 and mem["temp_bytes"] > 0
+    assert cell["flops_per_chip"] > 0 and cell["bytes_accessed_per_chip"] > 0 and cell["plan_seconds"] >= 0
