@@ -2622,17 +2622,23 @@ def train_qwen_phase(smi: str) -> None:
     torch.cuda.empty_cache()
 
 
-#: 10e's (mesh, global batch, microbatches): 10b's cell tensor-parallel
-#: (2 microbatches of 1, as 10b), data-parallel and both (2 microbatches
-#: of 2, one sequence per data shard in each)
-TRAIN_SHARDED = (((1, 2), 2, 2), ((2, 1), 4, 2), ((2, 2), 4, 2))
+#: 10e's (arch, layers, mesh, global batch, microbatches): 10b's cell
+#: tensor-parallel (2 microbatches of 1, as 10b), data-parallel and both
+#: (2 microbatches of 2, one sequence per data shard in each), and
+#: Mixtral's MoE at full width with 2 layers, tensor- and data-parallel
+TRAIN_SHARDED = (("qwen3-14b", TRAIN_QWEN["n_layers"], (1, 2), 2, 2),
+                 ("qwen3-14b", TRAIN_QWEN["n_layers"], (2, 1), 4, 2),
+                 ("qwen3-14b", TRAIN_QWEN["n_layers"], (2, 2), 4, 2),
+                 ("mixtral-8x7b", 2, (1, 2), 2, 2),
+                 ("mixtral-8x7b", 2, (2, 1), 4, 2))
 
 
 def train_sharded_phase(smi: str) -> None:
     """Phase 10e: the dry run's temporaries on sharded meshes against the
-    card's allocator.  For 10b's cell (Qwen3-14B, 4 layers, 4096 tokens a
-    sequence) on each mesh of :data:`TRAIN_SHARDED`, ``plan_cell``
-    predicts rank 0's peak as ``argument_bytes + temp_bytes``; then the
+    card's allocator.  For each cell of :data:`TRAIN_SHARDED` (10b's
+    Qwen3-14B cell and Mixtral's MoE at full width, 4096 tokens a
+    sequence), ``plan_cell`` predicts rank 0's peak as ``argument_bytes +
+    temp_bytes``, printed before the step runs; then the
     same step runs on the card on DTensors over a fake process group of
     the mesh's size and a ``"cuda"`` ``DeviceMesh`` (``dryrun.cell_step``:
     rank 0's blocks, zeros; the fake group moves no data, but each
@@ -2649,13 +2655,18 @@ def train_sharded_phase(smi: str) -> None:
     from repro_torch.launch.dryrun import cell_step, plan_cell
     from repro_torch.launch.mesh import make_mesh
 
-    kw = TRAIN_QWEN
-    cfg = get_config("qwen3-14b").scaled(n_layers=kw["n_layers"])
-    for shape, batch, grad_accum in TRAIN_SHARDED:
+    seq = TRAIN_QWEN["seq"]
+    for arch, n_layers, shape, batch, grad_accum in TRAIN_SHARDED:
+        cfg = get_config(arch).scaled(n_layers=n_layers)
         mesh = make_mesh(shape, ("data", "model"), device="meta")
         plan = plan_cell(cfg, "train_4k", mesh, batch_override=batch, grad_accum=grad_accum)
         mem = plan["memory_analysis"]
         predicted = mem["argument_bytes"] + mem["temp_bytes"]
+        cell = (f"{arch} {n_layers} layers, {shape} mesh (batch {batch} x {seq} as {grad_accum} microbatches, one "
+                f"card for rank 0 on a fake group of {shape[0] * shape[1]})")
+        log(f"train: 10e {cell}: predicted peak, before the step: argument_bytes {mem['argument_bytes']:,} + "
+            f"temp_bytes {mem['temp_bytes']:,} = {predicted:,} B ({predicted / 2**30:.2f} GiB; plan "
+            f"{plan['plan_seconds']:.2f} s, torch {torch.__version__})")
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
@@ -2672,16 +2683,13 @@ def train_sharded_phase(smi: str) -> None:
             measured = torch.cuda.max_memory_allocated() - mem0
             del out, args, step
         gap = predicted / measured - 1
-        log(f"train: 10e {shape} mesh (batch {batch} x {kw['seq']} as {grad_accum} microbatches, one card for "
-            f"rank 0 on a fake group of {shape[0] * shape[1]}): predicted peak argument_bytes "
-            f"{mem['argument_bytes']:,} + temp_bytes {mem['temp_bytes']:,} = {predicted:,} B ({predicted / 2**30:.2f} GiB; plan "
-            f"{plan['plan_seconds']:.2f} s), card's max_memory_allocated less the memory before the "
-            f"arguments {measured:,} B ({measured / 2**30:.2f} GiB): {100 * gap:+.2f}%; the step "
-            f"{step_s:.1f} s on DTensors; collectives per chip "
-            f"{int(plan['collectives']['total_per_chip_bytes']):,} B ({smi})")
+        log(f"train: 10e {cell}: predicted peak {predicted:,} B ({predicted / 2**30:.2f} GiB), card's "
+            f"max_memory_allocated less the memory before the arguments {measured:,} B "
+            f"({measured / 2**30:.2f} GiB): {100 * gap:+.2f}%; the step {step_s:.1f} s on DTensors; collectives "
+            f"per chip {int(plan['collectives']['total_per_chip_bytes']):,} B ({smi})")
         if abs(gap) > 0.10:
-            raise AssertionError(f"train: 10e {shape} predicted peak {predicted} B is {100 * gap:+.1f}% off "
-                                 f"the card's {measured} B")
+            raise AssertionError(f"train: 10e {arch} {shape} predicted peak {predicted} B is {100 * gap:+.1f}% "
+                                 f"off the card's {measured} B")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2789,9 +2797,11 @@ def train_phase(smi: str) -> None:
 
 #: Qwen3-14B's layers placed over the production meshes in 11a
 LAUNCH_LAYERS = 4
-#: the dry-run cells of 11b: (shape, mesh)
-LAUNCH_CELLS = (("train_4k", "single"), ("prefill_32k", "single"), ("decode_32k", "single"),
-                ("decode_32k", "multi"))
+#: the dry-run cells of 11b: (arch, shape, mesh); Scout's train_4k is the
+#: MoE cell whose per-chip size PERF.md quotes
+LAUNCH_CELLS = (("qwen3-14b", "train_4k", "single"), ("qwen3-14b", "prefill_32k", "single"),
+                ("qwen3-14b", "decode_32k", "single"), ("qwen3-14b", "decode_32k", "multi"),
+                ("llama4-scout-17b-a16e", "train_4k", "single"))
 HBM_BYTES = 80 * 2**30
 #: phase 11's time limit (the dry run's four cells dominate it)
 LAUNCH_SECONDS = 60
@@ -2847,8 +2857,9 @@ def launch_placement_phase(smi: str) -> None:
 
 
 def launch_dryrun_phase() -> None:
-    """Phase 11b: ``lower_cell`` for Qwen3-14B at full depth on ``meta``,
-    the step run on DTensors over the production mesh: per-chip argument
+    """Phase 11b: ``lower_cell`` for Qwen3-14B's cells and Llama-4-Scout's
+    MoE ``train_4k`` at full depth on ``meta``, each step run on DTensors
+    over the production mesh: per-chip argument
     and temporary bytes against the card's 80 GiB, collectives by kind,
     FLOPs and bytes accessed per chip and the model-FLOPs ratio of each
     cell."""
@@ -2856,9 +2867,9 @@ def launch_dryrun_phase() -> None:
 
     from repro_torch.launch.dryrun import lower_cell
 
-    for shape, kind in LAUNCH_CELLS:
+    for arch, shape, kind in LAUNCH_CELLS:
         with contextlib.redirect_stdout(io.StringIO()):  # lower_cell prints its own JSON line
-            r = lower_cell("qwen3-14b", shape, kind)
+            r = lower_cell(arch, shape, kind)
         if r["status"] != "ok":
             raise AssertionError(f"launch: dry run {shape} x {kind}: {r}")
         mem = r["memory_analysis"]
@@ -2866,7 +2877,7 @@ def launch_dryrun_phase() -> None:
         coll = r["collectives"]
         kinds = ", ".join(f"{k} {coll['counts'][k]} x {int(b):,} B" for k, b in coll["bytes_by_kind"].items()
                           if coll["counts"][k])
-        log(f"launch: 11b dry run qwen3-14b {shape} x {kind} ({r['n_chips']} chips, {r['scan_info']}): "
+        log(f"launch: 11b dry run {arch} {shape} x {kind} ({r['n_chips']} chips, {r['scan_info']}): "
             f"argument {arg:,} B per chip ({arg / HBM_BYTES:.2%} of 80 GiB; by part "
             f"{mem['argument_bytes_by_part']}), temp {temp:,} B ({temp / HBM_BYTES:.2%} of 80 GiB), output "
             f"{mem['output_bytes']:,} B; collectives per chip {int(coll['total_per_chip_bytes']):,} B ({kinds}); "

@@ -27,6 +27,7 @@ from .common import (
     constrain_batch,
     einsum,
     even_heads,
+    gathered,
     init_dense,
     init_zeros,
     local_block,
@@ -227,8 +228,10 @@ def _merge_heads(out: torch.Tensor) -> torch.Tensor:
     to DTensor, a head dim sharded inside the heads (a cross-attention
     cache's hd) or a gradient sharded over the merged heads would have to
     be merged or split across its shard: torch 2.11 refuses that, and 2.13
-    makes a strided sharding that it then plans by graph search."""
-    return constrain_batch(constrain_batch(out).reshape(*out.shape[:2], -1))
+    makes a strided sharding that it then plans by graph search.  Where
+    there is no data axis to pin to, a head dim sharded inside the heads
+    (a decode cache whose widest dim is hd) is gathered first."""
+    return constrain_batch(gathered(constrain_batch(out), -1).reshape(*out.shape[:2], -1))
 
 
 def attention(

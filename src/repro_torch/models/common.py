@@ -35,11 +35,13 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 __all__ = [
     "ModelConfig",
     "ParamSpec",
+    "batch_rows",
     "constrain_batch",
     "init_dense",
     "init_zeros",
     "param_device",
     "promoted",
+    "fsdp_gathered",
     "gathered",
     "local_block",
     "split_last",
@@ -142,6 +144,19 @@ def _leaves(tree: Any):
 ParamSpec = Tuple[str, ...]
 
 
+def _batch_placements(x: DTensor):
+    """The placements that pin ``x`` 's leading (batch) dim to the
+    data-parallel mesh axes (``pod`` and ``data`` of size > 1) and replicate
+    it on the rest, or None where there is no such axis or the batch does not
+    divide their product."""
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names or ()
+    dp = [i for i, a in enumerate(names) if a in ("pod", "data") and mesh.size(i) > 1]
+    if not dp or x.shape[0] % math.prod(mesh.size(i) for i in dp):
+        return None
+    return [Shard(0) if i in dp else Replicate() for i in range(mesh.ndim)]
+
+
 def constrain_batch(x: torch.Tensor) -> torch.Tensor:
     """Pin the leading (batch) dim to the data-parallel mesh axes, as the
     reference's sharding constraint does under a mesh: a DTensor whose
@@ -154,12 +169,33 @@ def constrain_batch(x: torch.Tensor) -> torch.Tensor:
     temporaries on train cells)."""
     if not isinstance(x, DTensor):
         return x
-    mesh = x.device_mesh
-    names = mesh.mesh_dim_names or ()
-    dp = [i for i, a in enumerate(names) if a in ("pod", "data") and mesh.size(i) > 1]
-    if not dp or x.shape[0] % math.prod(mesh.size(i) for i in dp):
-        return x
-    return x.redistribute(mesh, [Shard(0) if i in dp else Replicate() for i in range(mesh.ndim)])
+    pl = _batch_placements(x)
+    return x if pl is None else x.redistribute(x.device_mesh, pl)
+
+
+def batch_rows(fn, *ts: torch.Tensor):
+    """``fn(*ts)`` for an ``fn`` whose output row ``b`` reads only row ``b``
+    of each input (a gather or scatter within each sequence).  On DTensors
+    it runs on the local blocks: every input pinned to the batch axes
+    (:func:`constrain_batch`; replicated where the batch does not split)
+    and each output a DTensor so placed.  Torch 2.11's DTensor plans no
+    index into a batch sharded over two mesh axes, nor the backward of an
+    index whose gradient is a partial sum, where each sequence's rows are
+    on one chip all along.  The identity, ``fn(*ts)``, on plain tensors."""
+    first = next((t for t in ts if isinstance(t, DTensor)), None)
+    if first is None:
+        return fn(*ts)
+    mesh = first.device_mesh
+    pl = _batch_placements(first) or [Replicate()] * mesh.ndim
+    local = [(t if isinstance(t, DTensor) else DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                                                   run_check=False))
+             .redistribute(mesh, pl).to_local() for t in ts]
+    out = fn(*local)
+
+    def wrap(o):
+        return DTensor.from_local(o, mesh, pl, run_check=False)
+
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
 
 
 def param_device(gen: Optional[torch.Generator]) -> torch.device:
@@ -205,6 +241,24 @@ def promoted(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     for t in ts[1:]:
         dt = torch.promote_types(dt, t.dtype)
     return tuple(t.to(dt) for t in ts)
+
+
+def fsdp_gathered(w: torch.Tensor) -> torch.Tensor:
+    """A weight's FSDP shards gathered before its product, as the
+    reference's partitioner gathers them: a DTensor sharded on a ``pod`` or
+    ``data`` mesh axis is redistributed to ``Replicate`` on those axes (its
+    model-axis shards kept).  Left to DTensor, a product of batch-sharded
+    rows with a weight sharded on the same axis may instead be split over
+    the contraction: every chip then computes a slice of every row of the
+    global batch, partial sums that are reduce-scattered at the full batch's
+    size.  The identity on a plain tensor."""
+    if not isinstance(w, DTensor):
+        return w
+    mesh = w.device_mesh
+    names = mesh.mesh_dim_names or ()
+    pl = [Replicate() if names[i] in ("pod", "data") and mesh.size(i) > 1 else p
+          for i, p in enumerate(w.placements)]
+    return w if pl == list(w.placements) else w.redistribute(mesh, pl)
 
 
 def summed(x: torch.Tensor) -> torch.Tensor:

@@ -27,8 +27,9 @@ import torch.nn.functional as F
 from .._device import make_generator, to_device
 from .common import (
     ModelConfig,
+    batch_rows,
     constrain_batch,
-    gathered,
+    fsdp_gathered,
     gelu_tanh,
     init_dense,
     init_zeros,
@@ -120,9 +121,9 @@ def init_moe(key: Union[int, torch.Generator], cfg: ModelConfig, *, device=None)
 
 def _expert_ffn(p, expert_in: torch.Tensor) -> torch.Tensor:
     """(E, C, D) -> (E, C, D) through the per-expert SwiGLU weights."""
-    h = silu(torch.bmm(*promoted(expert_in, p["w_gate"])))
-    h = h * torch.bmm(*promoted(expert_in, p["w_up"]))
-    return torch.bmm(*promoted(h, p["w_down"]))
+    h = silu(torch.bmm(*promoted(expert_in, fsdp_gathered(p["w_gate"]))))
+    h = h * torch.bmm(*promoted(expert_in, fsdp_gathered(p["w_up"])))
+    return torch.bmm(*promoted(h, fsdp_gathered(p["w_down"])))
 
 
 def _expert_ffn_batched(p, expert_in: torch.Tensor) -> torch.Tensor:
@@ -180,25 +181,34 @@ def moe(
         expert_out = _expert_ffn_batched(p, expert_in)  # (B, E, C, D)
         out = torch.einsum("bnkec,becd->bnd", *promoted(combine, expert_out))
     else:
-        rows = torch.arange(B, device=x.device)
         slot = torch.where(keep, gate_idx * C + pos, E * C)  # (B, S, K); E*C = spill
-        # each (token, choice) writes its token index + 1 (0 = empty slot)
-        token = torch.arange(1, S + 1, device=x.device)[:, None].expand(S, K).reshape(S * K)
-        # DTensor cannot scatter in place at an index sharded over the batch:
-        # the index is replicated first, and the buffer made like it
-        index = gathered(slot).reshape(B, S * K)
-        token_of_slot = index.new_zeros((B, E * C + 1), dtype=torch.int64)
-        token_of_slot.scatter_(1, index, token.expand(B, S * K))
-        token_of_slot = token_of_slot[:, : E * C]
-        filled = token_of_slot > 0
+
+        # dispatch and combine are gathers within each sequence, run on the
+        # local blocks of a DTensor (torch 2.11 plans neither over a batch
+        # split by two mesh axes, nor the combine's backward)
+        def gather_slots(x, slot):
+            b = x.shape[0]
+            # each (token, choice) writes its token index + 1 (0 = empty slot)
+            token = torch.arange(1, S + 1, device=x.device)[:, None].expand(S, K).reshape(S * K)
+            token_of_slot = slot.new_zeros((b, E * C + 1), dtype=torch.int64)
+            token_of_slot.scatter_(1, slot.reshape(b, S * K), token.expand(b, S * K))
+            token_of_slot = token_of_slot[:, : E * C]
+            rows = torch.arange(b, device=x.device)
+            return x[rows[:, None], (token_of_slot - 1).clamp_min(0)], token_of_slot > 0  # (B, E*C, D)
+
+        def gather_choices(expert_out, slot):
+            b = expert_out.shape[0]
+            padded = torch.cat([expert_out, expert_out.new_zeros(b, 1, D)], dim=1)
+            rows = torch.arange(b, device=expert_out.device)
+            return padded[rows[:, None, None], slot]  # (B, S, K, D); spill reads zeros
+
+        slot_rows, filled = batch_rows(gather_slots, x, slot)
         # the slots pinned to the batch axes around the expert reshapes, their
         # gradients too (DTensor would split and merge the slot dims across a
         # model-axis shard: strided shardings it plans by graph search)
-        slot_rows = constrain_batch(x[rows[:, None], (token_of_slot - 1).clamp_min(0)])  # (B, E*C, D)
         expert_in = constrain_batch(torch.where(filled[..., None], slot_rows, 0.0).reshape(B, E, C, D))
         expert_out = constrain_batch(constrain_batch(_expert_ffn_batched(p, expert_in)).reshape(B, E * C, D))
-        padded = torch.cat([expert_out, expert_out.new_zeros(B, 1, D)], dim=1)
-        per_choice = padded[rows[:, None, None], slot]  # (B, S, K, D); spill reads zeros
+        per_choice = batch_rows(gather_choices, expert_out, slot)
         # the reference's einsum over the K choices, accumulated as a
         # contraction accumulates: in at least float32, each choice added
         # with one fused multiply-add, one rounding to x's dtype at the end

@@ -17,9 +17,10 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .._device import make_generator, resolve_device
-from .common import ModelConfig, gelu_tanh, init_dense, mm, param_device, sigmoid, softplus
+from .common import ModelConfig, gathered, gelu_tanh, init_dense, mm, param_device, sigmoid, softplus
 
 __all__ = [
     "init_rglru_block",
@@ -76,8 +77,10 @@ def init_rglru_block(key, cfg: ModelConfig, *, device=None):
 
 def _gates(p, x):
     """x: (..., W) post-conv activations -> (a_t, gated input), float32."""
-    r = sigmoid(x.float() @ p["w_a"].float() + p["b_a"])
-    i = sigmoid(x.float() @ p["w_x"].float() + p["b_x"])
+    # each product's partial sums completed before its bias (``mm``): torch
+    # 2.11 cannot add a bias sharded like the product's columns to them
+    r = sigmoid(mm(x.float(), p["w_a"].float()) + p["b_a"])
+    i = sigmoid(mm(x.float(), p["w_x"].float()) + p["b_x"])
     log_a = -_C * softplus(p["lam"]) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * x.float())
@@ -122,7 +125,15 @@ def associative_scan(fn: Callable, elems: Tuple[torch.Tensor, ...], dim: int = 0
 
 
 def _interleave(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
-    """a0 b0 a1 b1 ... along ``dim`` (``a`` as long as ``b`` or one longer)."""
+    """a0 b0 a1 b1 ... along ``dim`` (``a`` as long as ``b`` or one longer).
+    DTensors interleave block by block, ``dim`` whole on every chip and
+    ``b`` placed as ``a``: DTensor makes the ``new_empty`` buffer
+    replicated, so each write into it would gather the whole batch."""
+    if isinstance(a, DTensor):
+        a = gathered(a, dim)
+        mesh, pl = a.device_mesh, a.placements
+        out = _interleave(a.to_local(), b.redistribute(mesh, pl).to_local(), dim)
+        return DTensor.from_local(out, mesh, pl, run_check=False)
     shape = list(a.shape)
     shape[dim] = a.shape[dim] + b.shape[dim]
     out = a.new_empty(shape)

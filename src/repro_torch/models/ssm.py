@@ -15,12 +15,14 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .._device import make_generator, resolve_device
 from .common import (
     ModelConfig,
     constrain_batch,
     einsum,
+    gathered,
     init_dense,
     init_zeros,
     mm,
@@ -100,11 +102,35 @@ def _causal_conv(xbc, conv_w, tail=None):
     return silu(out), xp[:, -(W - 1) :]
 
 
+class _BlockCumsum(torch.autograd.Function):
+    """``torch.cumsum`` of a DTensor whose backward runs autograd's own
+    formula (the gradient flipped, summed, flipped back) on each chip's
+    block, ``dim`` whole on every chip: torch 2.11's DTensor has no
+    strategy for ``flip``."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        return torch.cumsum(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = gathered(g, ctx.dim)
+        block = g.to_local().flip(ctx.dim).cumsum(ctx.dim).flip(ctx.dim)
+        return DTensor.from_local(block, g.device_mesh, g.placements, run_check=False,
+                                  shape=g.shape, stride=g.stride()), None
+
+
+def _cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cumsum(x, dim)``; on a DTensor through :class:`_BlockCumsum`."""
+    return _BlockCumsum.apply(x, dim % x.ndim) if isinstance(x, DTensor) else torch.cumsum(x, dim)
+
+
 def _segsum(a):
     """log-decay matrix L[i,j] = Σ_{k=j+1..i} a_k (j<=i), -inf above diag.
     a: (..., L)."""
     Lc = a.shape[-1]
-    cums = torch.cumsum(a, dim=-1)
+    cums = _cumsum(a, -1)
     diff = cums[..., :, None] - cums[..., None, :]  # (..., i, j) = sum(j+1..i)
     mask = torch.tril(torch.ones((Lc, Lc), dtype=torch.bool, device=a.device))
     return torch.where(mask, diff, -torch.inf)
@@ -140,7 +166,7 @@ def ssd_forward(p, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
     ys = []
     for c in range(nc):
         xq, Bq, Cq, dtq, aq = xc[:, c], Bc[:, c], Cc[:, c], dtc[:, c], ac[:, c]
-        cum = torch.cumsum(aq, dim=1)  # (B,Q,H)
+        cum = _cumsum(aq, 1)  # (B,Q,H)
         # inter-chunk contribution: y_off[i] = C_i · (h * exp(cum_i))
         y_off = einsum("bqn,bhpn,bqh->bqhp", Cq, h, torch.exp(cum))
         # intra-chunk (dual quadratic form)

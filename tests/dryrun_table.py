@@ -1,0 +1,66 @@
+"""A markdown table of a dry-run sweep's cells, one row per (arch, shape),
+the single- and multi-pod meshes side by side.
+
+    PYTHONPATH=src python tests/dryrun_table.py results/dryrun_torch [OTHER_DIR]
+
+Each ok cell gives its per-chip arguments plus temporaries (GiB, and the
+share of an 80 GiB card), its collectives per chip (GB) and its plan
+seconds, from the JSON files ``python -m repro_torch.launch.dryrun``
+writes.  With a second directory (the same sweep under another torch), a
+cell whose bytes or collectives differ from it by more than 1% is marked
+``*``.  The last line counts the cells by status and sums the plan
+seconds.
+"""
+import json
+import sys
+from collections import Counter
+from pathlib import Path
+
+HBM = 80 * 2**30
+
+
+def cells(directory):
+    out = {}
+    for path in sorted(Path(directory).glob("*.json")):
+        r = json.loads(path.read_text())
+        out[(r["arch"], r["shape"], r["mesh"])] = r
+    return out
+
+
+def _size(r):
+    m = r["memory_analysis"]
+    return m["argument_bytes"] + m["temp_bytes"], r["collectives"]["total_per_chip_bytes"]
+
+
+def _differs(r, other) -> bool:
+    if other is None or other.get("status") != "ok":
+        return False
+    return any(abs(a - b) > 0.01 * max(abs(b), 1) for a, b in zip(_size(r), _size(other)))
+
+
+def main(argv) -> None:
+    main_cells = cells(argv[0])
+    other = cells(argv[1]) if len(argv) > 1 else {}
+    print("| arch | shape | single: GiB (of 80) / coll GB / plan s | multi: GiB (of 80) / coll GB / plan s |")
+    print("| --- | --- | --- | --- |")
+    rows = sorted({(a, s) for a, s, _ in main_cells})
+    for arch, shape in rows:
+        entries = []
+        for mesh in ("single", "multi"):
+            r = main_cells.get((arch, shape, mesh))
+            if r is None or r["status"] != "ok":
+                entries.append(r["status"] if r else "-")
+                continue
+            size, coll = _size(r)
+            mark = " *" if _differs(r, other.get((arch, shape, mesh))) else ""
+            entries.append(f"{size / 2**30:.2f} ({size / HBM:.0%}) / {coll / 1e9:.1f} / {r['plan_seconds']:.2f}{mark}")
+        if all(e == "skipped" for e in entries):
+            continue
+        print(f"| {arch} | {shape} | {entries[0]} | {entries[1]} |")
+    status = Counter(r["status"] for r in main_cells.values())
+    total = sum(r.get("plan_seconds", 0) for r in main_cells.values() if r["status"] == "ok")
+    print(f"\n{dict(status)}; plan seconds summed over the ok cells {total:.1f}")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -266,7 +266,12 @@ def test_sharded_temporaries_on_meta_equal_real_cpu_tensors(mode, mesh):
     index arithmetic and scalars DTensor makes on the host, which a step on
     ``meta`` (or CUDA) leaves out by their device and one on the CPU
     cannot: within 0.1%."""
-    cfg = get_config("qwen3-14b", smoke=True)
+    assert_sharded_meta_equals_cpu("qwen3-14b", mode, mesh)
+
+
+def assert_sharded_meta_equals_cpu(arch, mode, mesh):
+    """The body of the test above for ``arch`` 's SMOKE config."""
+    cfg = get_config(arch, smoke=True)
     m = make_mesh(mesh, ("data", "model"), device="meta")
     counts = []
     with pytest.MonkeyPatch.context() as mp, fake_device_mesh(m) as dm:
