@@ -34,6 +34,7 @@ from .common import (
     mm,
     rmsnorm,
     split_last,
+    whole_grad,
 )
 
 __all__ = ["init_attention", "attention", "decode_attention", "KVCache", "init_kv_cache"]
@@ -124,7 +125,7 @@ def _sdpa(q, k, v, mask):
     scores = torch.where(mask_b, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = einsum("bkgst,btkh->bskgh", probs, v)
-    return out.reshape(B, S, H, hd)
+    return whole_grad(out.reshape(B, S, H, hd), 2)
 
 
 #: sequences at/above this length use the memory-bounded flash path

@@ -45,6 +45,7 @@ __all__ = [
     "gathered",
     "local_block",
     "split_last",
+    "whole_grad",
     "summed",
     "mm",
     "einsum",
@@ -261,6 +262,20 @@ def fsdp_gathered(w: torch.Tensor) -> torch.Tensor:
     return w if pl == list(w.placements) else w.redistribute(mesh, pl)
 
 
+def whole_grad(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` as it is; where its ``dim`` is whole on every chip, its
+    gradient comes back whole along ``dim`` too (redistributed to ``x`` 's
+    placements on its way back; no collective forward).  For a view whose
+    backward splits ``dim``: attention's merge of the K groups' heads,
+    whose gradient may come back sharded over the H heads (as ``wo`` 's
+    rows are) over a model axis that does not divide K (2 groups on 4
+    chips), which DTensor cannot split.  The identity on a plain tensor and
+    where ``dim`` is sharded."""
+    if isinstance(x, DTensor) and not any(p.is_shard(dim % x.ndim) for p in x.placements):
+        return x.redistribute(x.device_mesh, x.placements)
+    return x
+
+
 def summed(x: torch.Tensor) -> torch.Tensor:
     """A product's partial sums completed where it is made: a DTensor with
     ``Partial`` placements (a contraction over a sharded dim) is
@@ -333,8 +348,13 @@ def split_last(x: torch.Tensor, n: int, size: int) -> torch.Tensor:
 
 
 def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` in the promoted dtype."""
-    return summed(torch.matmul(*promoted(x, w)))
+    """``x @ w`` in the promoted dtype, the weight's FSDP shards gathered
+    first (:func:`fsdp_gathered`), as the reference's partitioner gathers
+    them: each chip multiplies its own batch rows by the whole contraction,
+    autograd saves the gathered weight, so ``dx`` keeps the rows' batch
+    shard, and the weight's gradient is reduce-scattered onto its shard
+    once, at the gather's backward.  ``x`` is never gathered."""
+    return summed(torch.matmul(*promoted(x, fsdp_gathered(w))))
 
 
 def einsum(eq: str, *ts: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """The collectives of one dry-run cell, op by op: which op of the port's
-step issues each collective of a kind, and how many bytes.
+step issues each collective of a kind, and how many bytes (or, with
+``--kind flops``, which ops compute the FLOPs per chip).
 
     PYTHONPATH=src python tests/collective_tally.py llama4-scout-17b-a16e train_4k \
-        [--kind reduce-scatter] [--groups 2] [--mesh single|multi] [--top 20]
+        [--kind reduce-scatter|...|flops] [--groups 2] [--mesh single|multi] [--top 20]
 
 The cell's step runs on DTensors over the production mesh on ``meta``, as
 ``repro_torch.launch.dryrun.plan_cell`` runs it, at ``--groups`` layer
@@ -33,7 +34,8 @@ from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 
 
 class Tally(dryrun.StepCount):
-    """``StepCount`` with each collective of ``kind`` put under its op."""
+    """``StepCount`` with each collective of ``kind`` (or each op's FLOPs)
+    put under its op."""
 
     def __init__(self, kind: str):
         super().__init__()
@@ -55,24 +57,32 @@ class Tally(dryrun.StepCount):
         return super().__torch_dispatch__(func, types, args, kwargs)
 
     def _local_op(self, func, args, kwargs):
+        if self.kind == "flops":
+            before = self.c["flops"]
+            out = super()._local_op(func, args, kwargs)
+            if self.c["flops"] > before:
+                self._add(str(func), args, self.c["flops"] - before)
+            return out
         if dryrun.collective_kind(func) == self.kind:
-            node = torch._C._current_autograd_node()
-            frames = [f for f in traceback.extract_stack()
-                      if "repro_torch" in f.filename and "launch/dryrun" not in f.filename]
-            where = " < ".join(f"{f.filename.split('repro_torch/')[-1]}:{f.lineno}" for f in frames[::-1][:3])
-            operand = dryrun._local(args[0])
-            key = (str(self._outer[-1]) if self._outer else "redistribute",
-                   node.name() if node is not None else "-", tuple(operand.shape), str(operand.dtype), where)
-            self.bytes[key] += dryrun._nbytes(args[0])
-            self.count[key] += 1
+            self._add(str(self._outer[-1]) if self._outer else "redistribute", args, dryrun._nbytes(args[0]))
         return super()._local_op(func, args, kwargs)
+
+    def _add(self, op, args, amount):
+        node = torch._C._current_autograd_node()
+        frames = [f for f in traceback.extract_stack()
+                  if "repro_torch" in f.filename and "launch/dryrun" not in f.filename]
+        where = " < ".join(f"{f.filename.split('repro_torch/')[-1]}:{f.lineno}" for f in frames[::-1][:3])
+        operand = dryrun._local(args[0])
+        key = (op, node.name() if node is not None else "-", tuple(operand.shape), str(operand.dtype), where)
+        self.bytes[key] += amount
+        self.count[key] += 1
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("arch", choices=ARCH_IDS)
     ap.add_argument("shape", choices=tuple(SHAPES))
-    ap.add_argument("--kind", choices=dryrun.COLLECTIVE_KINDS, default="reduce-scatter")
+    ap.add_argument("--kind", choices=(*dryrun.COLLECTIVE_KINDS, "flops"), default="reduce-scatter")
     ap.add_argument("--groups", type=int, default=2)
     ap.add_argument("--mesh", choices=("single", "multi"), default="single")
     ap.add_argument("--top", type=int, default=20)
@@ -87,11 +97,15 @@ def main(argv=None) -> None:
         step, step_args = dryrun.cell_step(cut, args.shape, mesh, device_mesh)
         counts, _ = dryrun.count_step(tally, step, step_args)
     total = sum(tally.bytes.values())
-    print(f"{args.arch} {args.shape} {args.mesh} at {args.groups} layer groups, torch {torch.__version__}: "
-          f"{args.kind} {counts[f'{args.kind}_count']} ops, {counts[f'{args.kind}_bytes']:,} B per chip")
+    head = f"{args.arch} {args.shape} {args.mesh} at {args.groups} layer groups, torch {torch.__version__}: "
+    if args.kind == "flops":
+        print(head + f"{counts['flops']:,} FLOPs per chip")
+    else:
+        print(head + f"{args.kind} {counts[f'{args.kind}_count']} ops, {counts[f'{args.kind}_bytes']:,} B per chip")
+    unit = "F" if args.kind == "flops" else "B"
     for key, b in tally.bytes.most_common(args.top):
         op, node, shape, dtype, where = key
-        print(f"{b:>16,} B {tally.count[key]:>5}x {100 * b / max(total, 1):5.1f}%  {op}  {node}  "
+        print(f"{b:>20,} {unit} {tally.count[key]:>5}x {100 * b / max(total, 1):5.1f}%  {op}  {node}  "
               f"{shape} {dtype}  {where}")
 
 

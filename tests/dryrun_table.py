@@ -2,14 +2,17 @@
 the single- and multi-pod meshes side by side.
 
     PYTHONPATH=src python tests/dryrun_table.py results/dryrun_torch [OTHER_DIR]
+    PYTHONPATH=src python tests/dryrun_table.py AFTER_DIR --before BEFORE_DIR
 
 Each ok cell gives its per-chip arguments plus temporaries (GiB, and the
 share of an 80 GiB card), its collectives per chip (GB) and its plan
 seconds, from the JSON files ``python -m repro_torch.launch.dryrun``
 writes.  With a second directory (the same sweep under another torch), a
 cell whose bytes or collectives differ from it by more than 1% is marked
-``*``.  The last line counts the cells by status and sums the plan
-seconds.
+``*``, and the marked cells are counted.  The last line counts the cells
+by status and sums the plan seconds.  With ``--before`` each cell gives
+both sweeps' GiB and collectives instead (before -> after), the
+collectives' ratio, and ``!`` where they rose more than 2x.
 """
 import json
 import sys
@@ -38,7 +41,33 @@ def _differs(r, other) -> bool:
     return any(abs(a - b) > 0.01 * max(abs(b), 1) for a, b in zip(_size(r), _size(other)))
 
 
+def before_after(after, before) -> None:
+    print("| arch | shape | single: GiB / coll GB, before -> after | multi: GiB / coll GB, before -> after |")
+    print("| --- | --- | --- | --- |")
+    for arch, shape in sorted({(a, s) for a, s, _ in after}):
+        entries = []
+        for mesh in ("single", "multi"):
+            a, b = after.get((arch, shape, mesh)), before.get((arch, shape, mesh))
+            if a is None or b is None or "ok" not in (a["status"], b["status"]):
+                entries.append(a["status"] if a else "-")
+                continue
+            if a["status"] != "ok" or b["status"] != "ok":
+                entries.append(f"{b['status']} -> {a['status']}")
+                continue
+            (sa, ca), (sb, cb) = _size(a), _size(b)
+            ratio = ca / cb if cb else float("inf") if ca else 1.0
+            entries.append(f"{sb / 2**30:.2f} -> {sa / 2**30:.2f} / {cb / 1e9:.2f} -> {ca / 1e9:.2f} "
+                           f"({ratio:.2f}x){' !' if ratio > 2 else ''}")
+        if all(e == "skipped" for e in entries):
+            continue
+        print(f"| {arch} | {shape} | {entries[0]} | {entries[1]} |")
+
+
 def main(argv) -> None:
+    if "--before" in argv:
+        i = argv.index("--before")
+        before_after(cells(argv[0]), cells(argv[i + 1]))
+        return
     main_cells = cells(argv[0])
     other = cells(argv[1]) if len(argv) > 1 else {}
     print("| arch | shape | single: GiB (of 80) / coll GB / plan s | multi: GiB (of 80) / coll GB / plan s |")
@@ -57,6 +86,10 @@ def main(argv) -> None:
         if all(e == "skipped" for e in entries):
             continue
         print(f"| {arch} | {shape} | {entries[0]} | {entries[1]} |")
+    if other:
+        marked = sum(_differs(r, other.get(k)) for k, r in main_cells.items() if r["status"] == "ok")
+        print(f"\n{marked} of {sum(r['status'] == 'ok' for r in main_cells.values())} ok cells differ by more "
+              f"than 1% from {argv[1]}")
     status = Counter(r["status"] for r in main_cells.values())
     total = sum(r.get("plan_seconds", 0) for r in main_cells.values() if r["status"] == "ok")
     print(f"\n{dict(status)}; plan seconds summed over the ok cells {total:.1f}")

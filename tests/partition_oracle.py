@@ -14,11 +14,15 @@ partitioned dry run is held against these numbers
         '[["qwen3-14b", "prefill", [4, 2], 16, 64]]'
 
 each cell ``[arch, mode, [data, model], batch, seq]`` (decode: ``seq``
-is the cache's context).  With ``--port`` each line also holds the
+is the cache's context), or with a sixth entry, a dict of
+``ModelConfig.scaled`` overrides of that cell's SMOKE config.  Each line
+also holds ``collectives_by_dtype``: the same bytes split by the dtype of
+each collective's result shapes.  With ``--port`` each line also holds the
 port's ``plan_cell`` of the same cell (the step on DTensors over the same
 mesh on a fake process group) and the ratio of the two collective totals.
 ``--scaled '{"d_model": 1024, "head_dim": 256, "d_ff": 4096}'`` widens
-both packages' SMOKE configs by ``ModelConfig.scaled``.
+both packages' SMOKE configs by ``ModelConfig.scaled`` for every cell
+without overrides of its own.
 """
 import json
 import os
@@ -35,7 +39,7 @@ from jax.sharding import NamedSharding, PartitionSpec  # noqa: E402
 
 from repro.configs import get_config  # noqa: E402
 from repro.dist.sharding import batch_sharding, default_rules, tree_shardings  # noqa: E402
-from repro.launch.dryrun import _decode_state_shardings, parse_collectives  # noqa: E402
+from repro.launch.dryrun import _DTYPE_BYTES, _SHAPE_RE, _decode_state_shardings, parse_collectives  # noqa: E402
 from repro.models import init_decode_state, init_params  # noqa: E402
 from repro.train.servestep import make_prefill_step, make_serve_step  # noqa: E402
 from repro.train.trainstep import TrainState, init_train_state, make_train_step  # noqa: E402
@@ -45,8 +49,33 @@ from repro.train.trainstep import TrainState, init_train_state, make_train_step 
 SCALED: dict = {}
 
 
-def lower(arch: str, mode: str, mesh_shape, B: int, S: int) -> dict:
-    cfg = get_config(arch, smoke=True).scaled(**SCALED)
+def collectives_by_dtype(hlo_text: str) -> dict:
+    """``parse_collectives`` ' bytes by kind, each split by the dtypes of
+    its result shapes: ``{kind: {dtype: bytes}}``.  Each collective line
+    is parsed alone by ``parse_collectives`` and its bytes shared among
+    the dtypes of its result (a tuple's elements) in proportion to their
+    bytes, so the splits add up to the totals."""
+    out: dict = {}
+    for line in hlo_text.splitlines():
+        one = parse_collectives(line)
+        kind = next((k for k, n in one["counts"].items() if n), None)
+        if kind is None:
+            continue
+        lhs, _, rhs = line.strip().partition("=")
+        shapes = [(dt, dims) for dt, dims in _SHAPE_RE.findall(rhs.split(kind)[0]) if dt in _DTYPE_BYTES] or \
+            [(dt, dims) for dt, dims in _SHAPE_RE.findall(lhs) if dt in _DTYPE_BYTES]
+        raw = {}
+        for dt, dims in shapes:
+            raw[dt] = raw.get(dt, 0) + int(np.prod([int(d) for d in dims.split(",") if d])) * _DTYPE_BYTES[dt]
+        total = sum(raw.values())
+        for dt, b in raw.items():
+            out.setdefault(kind, {})
+            out[kind][dt] = out[kind].get(dt, 0.0) + one["bytes_by_kind"][kind] * b / total
+    return out
+
+
+def lower(arch: str, mode: str, mesh_shape, B: int, S: int, scaled=None) -> dict:
+    cfg = get_config(arch, smoke=True).scaled(**(SCALED if scaled is None else scaled))
     mesh = jax.make_mesh(tuple(mesh_shape), ("data", "model"))
     rules = default_rules(mesh, expert_sharding=cfg.expert_sharding)
     box = {}
@@ -84,12 +113,14 @@ def lower(arch: str, mode: str, mesh_shape, B: int, S: int) -> dict:
                                   in_shardings=(state_sh, batch_sh), donate_argnums=(0,)).lower(
                     state, batch)
         compiled = lowered.compile()
+    text = compiled.as_text()
     return {"arch": arch, "mode": mode, "mesh": list(mesh_shape), "batch": B, "seq": S,
-            "collectives": parse_collectives(compiled.as_text()),
+            "scaled": SCALED if scaled is None else scaled,
+            "collectives": parse_collectives(text), "collectives_by_dtype": collectives_by_dtype(text),
             "temp_bytes": compiled.memory_analysis().temp_size_in_bytes}
 
 
-def plan(arch: str, mode: str, mesh_shape, B: int, S: int) -> dict:
+def plan(arch: str, mode: str, mesh_shape, B: int, S: int, scaled=None) -> dict:
     """The port's plan of the same cell."""
     from repro_torch.configs import get_config as port_config
     from repro_torch.configs.shapes import SHAPES, ShapeSpec
@@ -101,7 +132,8 @@ def plan(arch: str, mode: str, mesh_shape, B: int, S: int) -> dict:
     SHAPES[name] = ShapeSpec(name, S, saved.global_batch, mode)
     try:
         mesh = make_mesh(tuple(mesh_shape), ("data", "model"), device="meta")
-        return dryrun.plan_cell(port_config(arch, smoke=True).scaled(**SCALED), name, mesh, batch_override=B)
+        cfg = port_config(arch, smoke=True).scaled(**(SCALED if scaled is None else scaled))
+        return dryrun.plan_cell(cfg, name, mesh, batch_override=B)
     finally:
         SHAPES[name] = saved
 

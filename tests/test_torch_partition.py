@@ -8,11 +8,16 @@ local ops and collectives add up to.
   collective on a (1, 1) mesh in either package, and the port's collective
   bytes per chip within 2x of the reference's on the (8, 1) and (4, 2)
   meshes and, for qwen3-14b, on (2, 4), whose model axis does not divide
-  the KV heads; on (1, 8) (no data axis) the ratio is pinned with the op
-  that makes it; the reference lowers no MoE cell (mixtral-8x7b), which
-  the port plans;
+  the KV heads, and for qwen3-14b widened to d_model 1024 at 32 x 256
+  (prefill and train on (8, 1) and (4, 2), decode on (8, 1)); on (1, 8)
+  (no data axis) the ratio is pinned with the op that makes it; on (8, 1)
+  the port's collectives are the ZeRO-3 traffic of the param tree counted
+  by hand, and where that is under half the reference's bytes (whose host
+  lowering is all float32) the ratio of elements is pinned; the reference
+  lowers no MoE cell (mixtral-8x7b), which the port plans;
 * exact counts: the collectives and FLOPs of one batch-sharded input
-  times one FSDP-sharded weight, forward and backward, worked out by hand;
+  times one FSDP-sharded weight, forward and backward, worked out by hand,
+  as a plain product and through ``common.mm``, which gathers the weight;
   every count at two and three layer groups extended to five equal to
   the count of the five-group step; the local FLOPs of a pure data-parallel
   cell times its chips equal to the one-chip count; the temporaries on
@@ -24,6 +29,7 @@ local ops and collectives add up to.
   decode cache's block-by-block write equal to ``index_copy_`` on every
   rank's block.
 """
+import collections
 import json
 import os
 import subprocess
@@ -40,10 +46,11 @@ from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs import get_config
 from repro_torch.configs.shapes import SHAPES, ShapeSpec
-from repro_torch.dist.sharding import NamedSharding, P, fake_device_mesh, placements, to_dtensor
+from repro_torch.dist.sharding import (NamedSharding, P, default_rules, fake_device_mesh, placements, spec_for,
+                                      to_dtensor)
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.models import common
+from repro_torch.models import common, init_params
 from repro_torch.models.attention import _write_slot_
 from repro_torch.train import optimizer
 from test_torch_launch import _args, _deeper
@@ -57,6 +64,13 @@ ORACLE_MESHES = ((1, 1), (8, 1), (4, 2))
 UNEVEN_MESHES = ((2, 4), (1, 8))
 ORACLE_CELLS = [(a, m, mesh) for a in ORACLE_ARCHS for m in ("prefill", "train") for mesh in ORACLE_MESHES] + \
     [("qwen3-14b", m, mesh) for m in ("prefill", "train") for mesh in UNEVEN_MESHES]
+#: qwen3-14b's SMOKE config widened to d_model 1024 (``ModelConfig.scaled``)
+#: at batch 32 x 256 tokens (decode: 32 at context 256), where a product
+#: split over the contraction shows: a cell ``(arch, mode, mesh, "d1024")``
+WIDE = {"d_model": 1024, "head_dim": 256, "d_ff": 4096}
+WIDE_B, WIDE_S = 32, 256
+WIDE_CELLS = [("qwen3-14b", m, mesh, "d1024") for m, mesh in (
+    ("prefill", (8, 1)), ("prefill", (4, 2)), ("train", (4, 2)), ("train", (8, 1)), ("decode", (8, 1)))]
 
 
 def _short(monkeypatch_ctx, seq: int = S) -> None:
@@ -74,34 +88,43 @@ def _warm_count(step, args, again):
     return dryrun.count_step(dryrun.StepCount(), *again())[0]
 
 
-def _plan(arch, mode, mesh_shape, **kw):
+def _size(cell):
+    """A cell's SMOKE config (widened for a ``"d1024"`` cell), batch and
+    tokens."""
+    cfg = get_config(cell[0], smoke=True)
+    return (cfg.scaled(**WIDE), WIDE_B, WIDE_S) if cell[3:] == ("d1024",) else (cfg, B, S)
+
+
+def _plan(arch, mode, mesh_shape, *width, **kw):
+    cfg, b, s = _size((arch, mode, mesh_shape, *width))
     mesh = make_mesh(mesh_shape, ("data", "model"), device="meta")
     with pytest.MonkeyPatch.context() as mp:
-        _short(mp)
-        return dryrun.plan_cell(get_config(arch, smoke=True), SHAPE_OF[mode], mesh, batch_override=B, **kw)
+        _short(mp, s)
+        return dryrun.plan_cell(cfg, SHAPE_OF[mode], mesh, batch_override=b, **kw)
 
 
 def _oracle(cells):
     """The reference's partitioned program of ``cells`` (one subprocess)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
-    cells = [[a, m, list(mesh), B, S] for a, m, mesh in cells]
+    cells = [[a, m, list(mesh), WIDE_B, WIDE_S, WIDE] if width else [a, m, list(mesh), B, S]
+             for a, m, mesh, *width in cells]
     return subprocess.run([sys.executable, str(ROOT / "tests" / "partition_oracle.py"), json.dumps(cells)],
-                          env=env, capture_output=True, text=True, timeout=600)
+                          env=env, capture_output=True, text=True, timeout=900)
 
 
 @pytest.fixture(scope="module")
 def oracle():
     """The reference's collectives and temporaries per cell."""
-    out = _oracle(ORACLE_CELLS)
+    out = _oracle(ORACLE_CELLS + WIDE_CELLS)
     assert out.returncode == 0, out.stderr[-4000:]
     rows = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
-    return {(r["arch"], r["mode"], tuple(r["mesh"])): r for r in rows}
+    return {(r["arch"], r["mode"], tuple(r["mesh"])) + (("d1024",) if r["scaled"] else ()): r for r in rows}
 
 
 @pytest.fixture(scope="module")
 def plans():
-    return {cell: _plan(*cell) for cell in ORACLE_CELLS}
+    return {cell: _plan(*cell) for cell in ORACLE_CELLS + WIDE_CELLS}
 
 
 # ---------------------------------------------------------------------------
@@ -118,12 +141,21 @@ def test_one_chip_has_no_collectives(oracle, plans, arch, mode):
 #: cells whose collective bytes are pinned by their own test, not held to
 #: 2x: the port / reference ratio of the totals as measured
 PINNED = {("qwen3-14b", "prefill", (1, 8)): 6.31, ("qwen3-14b", "train", (1, 8)): 25.67}
+#: pure data-parallel cells whose collectives are the hand-counted ZeRO-3
+#: traffic (``zero3_bytes``) where the reference all-reduces in float32:
+#: the port / reference ratio of the collectives' elements, as measured
+ZERO3 = {("qwen3-14b", "train", (8, 1)): 0.50, ("mamba2-780m", "train", (8, 1)): 0.59,
+         ("mamba2-780m", "prefill", (8, 1)): 0.96, ("qwen3-14b", "train", (8, 1), "d1024"): 0.68}
+#: the cells held to 2x, with the ids they had before the ZeRO-3 cells left
+_OFF_ONE_CHIP = [c for c in ORACLE_CELLS if c[2] != (1, 1) and c not in PINNED]
+BANDED = [pytest.param(c, id=f"{c[0]}-{c[1]}-mesh{i}") for i, c in enumerate(_OFF_ONE_CHIP) if c not in ZERO3] + \
+    [pytest.param(c, id=f"{c[0]}-{c[1]}-{c[2][0]}x{c[2][1]}-{c[3]}") for c in WIDE_CELLS if c not in ZERO3]
 
 
-@pytest.mark.parametrize("arch,mode,mesh", [c for c in ORACLE_CELLS if c[2] != (1, 1) and c not in PINNED])
-def test_collective_bytes_within_twice_the_reference(oracle, plans, arch, mode, mesh):
-    ref = oracle[(arch, mode, mesh)]["collectives"]
-    port = plans[(arch, mode, mesh)]["collectives"]
+@pytest.mark.parametrize("cell", BANDED)
+def test_collective_bytes_within_twice_the_reference(oracle, plans, cell):
+    ref = oracle[cell]["collectives"]
+    port = plans[cell]["collectives"]
     ratio = port["total_per_chip_bytes"] / ref["total_per_chip_bytes"]
     assert 0.5 <= ratio <= 2.0, (ratio, port, ref)
     assert set(port["bytes_by_kind"]) == set(ref["bytes_by_kind"]) == set(dryrun.COLLECTIVE_KINDS)
@@ -147,6 +179,149 @@ def test_tensor_parallel_partial_sums_where_the_reference_gathers_weights(oracle
     assert 0.5 <= port["all-gather"] / ref["all-gather"] <= 2.0
     reduced = port["all-reduce"] + port["reduce-scatter"] - ref["all-reduce"] - ref["reduce-scatter"]
     assert reduced >= 0.95 * (sum(port.values()) - sum(ref.values()))
+
+
+#: the reference's dtype names of the port's collective operands
+DTYPE_NAME = {torch.bfloat16: "bf16", torch.float32: "f32", torch.int32: "s32"}
+DTYPE_BYTES = {"bf16": 2, "f32": 4, "s32": 4}
+
+
+def zero3_bytes(cfg, mode: str, n: int, batch: int, seq: int):
+    """The bytes one chip sends in ``cfg`` 's prefill or train step (one
+    microbatch) on a pure data-parallel ``(n, 1)`` mesh, worked out from
+    ``init_params`` ' shapes and the rule table (FSDP: each dim on
+    ``"embed"`` split over ``data``), by kind and the operand's dtype:
+
+    * every weight ``common.mm`` multiplies (two dims, one on ``"embed"``)
+      has its FSDP block all-gathered before each product: once in
+      prefill; in train twice for the stacked layers' (the forward, and
+      the remat's recompute in the backward) and once for ``lm_head``; its
+      gradient is reduce-scattered whole onto the blocks, once;
+    * each rmsnorm gamma (``("embed",)``) is gathered in float32 at each
+      use (train: the forward, the recompute, the backward's product; the
+      final norm, outside the remat, twice); its gradient reduce-scattered;
+    * the embedding lookup gathers the token ids (int32, each chip's rows)
+      and looks up the global batch's rows in its D columns; an all-to-all
+      (an all-gather on a CPU mesh) takes them back to the batch's rows, a
+      block of the rows' activations; the backward does both again, and
+      the table's gradient needs no collective more;
+    * each param replicated over ``data`` has its gradient all-reduced
+      whole; the loss's token count and each data-sharded leaf's share of
+      the global gradient norm are float32 scalars, all-reduced."""
+    mesh = make_mesh((n, 1), ("data", "model"), device="meta")
+    rules = default_rules(mesh)
+    params, axes = init_params(None, cfg, device="meta")
+    train = mode == "train"
+    rows = batch // n
+    assert not train or batch // (n * 4) <= 1  # one microbatch
+    out = collections.Counter()
+    sharded = 0
+
+    def add(kind, dtype, nbytes):
+        out[(kind, DTYPE_NAME[dtype])] += nbytes
+
+    def walk(name, t, ax):
+        nonlocal sharded
+        if isinstance(t, dict):
+            for k in t:
+                walk(k, t[k], ax[k])
+            return
+        stacked = ax[0] == "layers"
+        per = ax[1:] if stacked else ax
+        on_data = "data" in spec_for(ax, t.shape, rules, mesh)
+        whole = t.numel() * t.element_size()
+        sharded += on_data
+        if name == "embed":
+            add("all-gather", torch.int32, (1 + train) * rows * seq * 4)
+            add("all-gather", t.dtype, (1 + train) * rows * seq * cfg.d_model * t.element_size())
+        elif len(per) == 2 and "embed" in per and on_data:
+            add("all-gather", t.dtype, (1 + (train and stacked)) * whole // n)
+            if train:
+                add("reduce-scatter", t.dtype, whole)
+        elif per == ("embed",) and on_data:
+            add("all-gather", torch.float32, ((2 + stacked) if train else 1) * t.numel() // n * 4)
+            if train:
+                add("reduce-scatter", t.dtype, whole)
+        elif not on_data:
+            if train:
+                add("all-reduce", t.dtype, whole)
+        else:
+            raise ValueError(f"no count for {name} {ax}")
+
+    walk(None, params, axes)
+    if train:
+        add("all-reduce", torch.float32, 4 * (sharded + 1))
+    return out
+
+
+def _by_kind(by_dtype):
+    kinds = dict.fromkeys(dryrun.COLLECTIVE_KINDS, 0.0)
+    for (kind, _), b in by_dtype.items():
+        kinds[kind] += b
+    return kinds
+
+
+class ByDtype(dryrun.StepCount):
+    """``StepCount`` with each collective's bytes also under its kind and
+    its operand's dtype (``"kind:dtype"`` counts)."""
+
+    def start(self, args):
+        super().start(args)
+        self.c.update({f"{k}:{d}": 0 for k in dryrun.COLLECTIVE_KINDS for d in DTYPE_BYTES})
+
+    def _local_op(self, func, args, kwargs):
+        kind = dryrun.collective_kind(func)
+        if kind is not None:
+            self.c[f"{kind}:{DTYPE_NAME[dryrun._local(args[0]).dtype]}"] += dryrun._nbytes(args[0])
+        return super()._local_op(func, args, kwargs)
+
+
+def _count_by_dtype(cell):
+    """The cell's whole step counted by ``ByDtype``: {(kind, dtype): bytes}."""
+    cfg, b, s = _size(cell)
+    mesh = make_mesh(cell[2], ("data", "model"), device="meta")
+    with pytest.MonkeyPatch.context() as mp, fake_device_mesh(mesh) as dm:
+        _short(mp, s)
+        counts, _ = dryrun.count_step(ByDtype(), *dryrun.cell_step(cfg, SHAPE_OF[cell[1]], mesh, dm,
+                                                                  batch_override=b))
+    return {tuple(k.split(":")): v for k, v in counts.items() if ":" in k and v}
+
+
+DATA_PARALLEL_CELLS = [c for c in ORACLE_CELLS if c[2] == (8, 1)] + \
+    [c for c in WIDE_CELLS if c[2] == (8, 1) and c[1] != "decode"]
+
+
+@pytest.mark.parametrize("cell", DATA_PARALLEL_CELLS, ids=lambda c: "-".join(map(str, c[:2] + c[3:])))
+def test_data_parallel_collectives_counted_by_hand(plans, cell):
+    """On a pure data-parallel mesh the step's collectives are the ZeRO-3
+    traffic of its param tree, to the byte (``zero3_bytes``): no product is
+    split over an FSDP-sharded contraction."""
+    cfg, b, s = _size(cell)
+    want = _by_kind(zero3_bytes(cfg, cell[1], cell[2][0], b, s))
+    assert plans[cell]["collectives"]["bytes_by_kind"] == want
+
+
+@pytest.mark.parametrize("cell", list(ZERO3), ids=lambda c: "-".join(map(str, c[:2] + c[3:])))
+def test_zero3_where_the_reference_gathers_and_all_reduces_in_float32(oracle, plans, cell):
+    """Where the port's ZeRO-3 traffic sends fewer bytes than half the
+    reference's: the port's collectives are the hand count by kind and
+    dtype (bf16 weights and gradients); every collective of the
+    reference's host lowering is float32 or int32 (XLA on the host gathers
+    the bf16 weights and all-reduces the gradients as float32); and the
+    ratio of the collectives' elements (each collective's bytes over its
+    dtype's size, on both sides) keeps its measured value."""
+    cfg, b, s = _size(cell)
+    want = zero3_bytes(cfg, cell[1], cell[2][0], b, s)
+    assert _count_by_dtype(cell) == {k: v for k, v in want.items() if v}
+    assert plans[cell]["collectives"]["bytes_by_kind"] == _by_kind(want)
+    ref = oracle[cell]
+    ref_by_dtype = ref["collectives_by_dtype"]
+    assert {d for by in ref_by_dtype.values() for d in by} <= {"f32", "s32"}
+    for kind, by in ref_by_dtype.items():
+        assert sum(by.values()) == pytest.approx(ref["collectives"]["bytes_by_kind"][kind], rel=1e-12)
+    elements = sum(v / DTYPE_BYTES[d] for (_, d), v in want.items())
+    ref_elements = sum(v / DTYPE_BYTES[d] for by in ref_by_dtype.values() for d, v in by.items())
+    assert round(elements / ref_elements, 2) == ZERO3[cell], elements / ref_elements
 
 
 @pytest.mark.parametrize("mesh", [(1, 1), (8, 1), (4, 2)])
@@ -204,6 +379,39 @@ def test_fsdp_product_forward_and_backward_by_hand():
         counts, grad = dryrun.count_step(dryrun.StepCount(), step, args)
         assert grad.placements == (Shard(0), Replicate()) and grad.to_local().shape == (4, 48)
         assert args[0].grad.placements == (Shard(1), Replicate())
+    assert counts["all-gather_count"] == 1 and counts["all-gather_bytes"] == 4 * 48 * 2
+    assert counts["reduce-scatter_count"] == 1 and counts["reduce-scatter_bytes"] == 32 * 48 * 2
+    assert counts["all-reduce_count"] == counts["all-to-all_count"] == counts["collective-permute_count"] == 0
+    assert counts["flops"] == 3 * 2 * 64 * 32 * 48 // 8  # y = x w, dx = dy w^T, dw = x^T dy
+
+
+def test_gathered_weight_product_forward_and_backward_by_hand():
+    """``common.mm(x, w).square().sum()`` and its backward on the same mesh
+    and operands as above, the loss's gradient batch-sharded as a model's
+    is: ``mm`` gathers w's FSDP blocks first (each chip sends its 4 x 48
+    block), autograd saves the gathered w, so dx = dy w^T runs on rank 0's
+    8 batch rows with no collective and stays batch-sharded (the plain
+    product above shards dx on its columns instead, the seed of a split
+    over the contraction); dw = x^T dy contracts over the sharded batch
+    and is reduce-scattered once onto w's rows at the gather's backward
+    (the whole 32 x 48 operand)."""
+    mesh = make_mesh((8, 1), ("data", "model"), device="meta")
+    x = torch.empty(64, 32, dtype=torch.bfloat16, device="meta")
+    w = torch.empty(32, 48, dtype=torch.bfloat16, device="meta")
+
+    def step(x, w):
+        w.requires_grad_(True)
+        x.requires_grad_(True)
+        with torch.enable_grad():
+            common.mm(x, w).square().sum().backward()
+        return w.grad
+
+    with fake_device_mesh(mesh) as dm:
+        args = (to_dtensor(NamedSharding(mesh, P("data")), x, dm),
+                to_dtensor(NamedSharding(mesh, P("data")), w, dm))
+        counts, grad = dryrun.count_step(dryrun.StepCount(), step, args)
+        assert grad.placements == (Shard(0), Replicate()) and grad.to_local().shape == (4, 48)
+        assert args[0].grad.placements == (Shard(0), Replicate()) and args[0].grad.to_local().shape == (8, 32)
     assert counts["all-gather_count"] == 1 and counts["all-gather_bytes"] == 4 * 48 * 2
     assert counts["reduce-scatter_count"] == 1 and counts["reduce-scatter_bytes"] == 32 * 48 * 2
     assert counts["all-reduce_count"] == counts["all-to-all_count"] == counts["collective-permute_count"] == 0
@@ -392,8 +600,11 @@ def test_to_dtensor_holds_rank_zeros_block():
 
 def test_dtensor_forms_are_the_identity_on_plain_tensors():
     x = torch.randn(4, 6, 8)
-    for f in (common.constrain_batch, common.summed, common.gathered):
+    for f in (common.constrain_batch, common.summed, common.gathered, common.fsdp_gathered):
         assert f(x) is x
+    assert common.whole_grad(x, 1) is x
+    w = torch.randn(8, 5)
+    assert torch.equal(common.mm(x, w), x @ w)
     assert torch.equal(common.split_last(x, 2, 4), x.reshape(4, 6, 2, 4))
     t = torch.randn(3 * optimizer.CHUNK // 2 + 5)
     chunks = optimizer._chunks(t)

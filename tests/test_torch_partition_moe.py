@@ -146,23 +146,23 @@ def test_moe_block_collectives_by_hand(mesh, shared):
     gradient, partial sums over F, joins the tokens' gradient as partial
     sums (nothing in the block completes it).
 
-    (2, 1), FSDP: the tokens and each expert weight's D are sharded over
-    the data axis.  Forward: the router's (4, 2) float32 block is gathered
-    (32 B) and each expert weight's 2·4·8 bf16 block (3 x 128 B,
-    ``common.fsdp_gathered``), so every chip runs its own sequence's slots
-    against whole experts; the stats sum over the batch: all-reduces of
-    ``tokens_per_expert.sum()`` (twice, 4 B each), of ``f·pbar`` 's
-    (E,) float32 factor (8 B) and of ``slots_filled.sum()`` (4 B).
-    Backward: the router is gathered again for the tokens' gradient (32 B),
-    and each expert weight's gradient, partial sums over the batch, is
-    reduce-scattered back onto its D shard (3 x the whole 2·8·8 bf16
-    operand, 256 B); the router's gradient stays a partial sum (nothing
-    reads it in the block)."""
+    (2, 1), FSDP: the tokens and each weight's D are sharded over the
+    data axis.  Forward: the router's (4, 2) float32 block is gathered
+    (32 B, ``common.mm``) and each expert weight's 2·4·8 bf16 block (3 x
+    128 B, ``common.fsdp_gathered``), so every chip runs its own
+    sequence's slots against whole weights; the stats sum over the batch:
+    all-reduces of ``tokens_per_expert.sum()`` (twice, 4 B each), of
+    ``f·pbar`` 's (E,) float32 factor (8 B) and of ``slots_filled.sum()``
+    (4 B).  Backward: every weight's gradient, partial sums over the
+    batch, is reduce-scattered back onto its D shard at its gather's
+    backward: the router's whole (8, 2) float32 operand (64 B) and each
+    expert weight's 2·8·8 bf16 one (3 x 256 B); the tokens' gradient uses
+    the gathered router autograd saved."""
     want = {
         ((1, 2), False): {"all-reduce": (2, 2 * 320)},
         ((1, 2), True): {"all-reduce": (3, 2 * 320 + 256)},
-        ((2, 1), False): {"all-gather": (5, 2 * 32 + 3 * 128), "all-reduce": (4, 4 + 4 + 8 + 4),
-                          "reduce-scatter": (3, 3 * 256)},
+        ((2, 1), False): {"all-gather": (4, 32 + 3 * 128), "all-reduce": (4, 4 + 4 + 8 + 4),
+                          "reduce-scatter": (4, 64 + 3 * 256)},
     }[(mesh, shared)]
     assert _moe_block_counts(mesh, shared) == want
 

@@ -1,0 +1,162 @@
+"""The partitioned step computes what the plain step computes.
+
+The dry run (``repro_torch.launch.dryrun``) runs each cell's step on
+DTensors over a fake process group, whose collectives move nothing; here
+the same step runs on four real gloo ranks of this CPU
+(``torch.multiprocessing.spawn``, a ``file://`` rendezvous under the test's
+own ``tmp_path``), for qwen3-14b's SMOKE config on the (2, 2), (4, 1) and
+(1, 4) meshes: its params drawn from a seed, placed with
+``distribute_tensor`` by the dry run's own shardings, its batch drawn with
+numpy.  Each output, gathered whole, is held to the same step on plain
+tensors with the same microbatch count: the prefill step's last-position
+logits; the train step's loss, gradient norm and first moments (one AdamW
+step from zeros makes each ``m`` (1 - b1) times the clipped gradient, so
+``m`` holds the gradients as each chip's shard of them was synced).  The
+bound is twice the plain step's own gap between bf16 and float32 params
+(the same draws, the config's ``param_dtype`` float32), as the gradient
+bounds of ``tests/test_torch_trainstep.py`` are twice a measured gap.
+All six cells run in one spawn of four ranks (~35 s of the file's ~45).
+"""
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
+
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import SHAPES, ShapeSpec
+from repro_torch.dist.sharding import NamedSharding, _map, default_rules, placements
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import init_params
+from repro_torch.train.trainstep import init_train_state
+
+ARCH = "qwen3-14b"
+MESHES = ((2, 2), (4, 1), (1, 4))
+MODES = ("prefill", "train")
+SHAPE_OF = {"train": "train_4k", "prefill": "prefill_32k"}
+B, S = 16, 64
+WORLD = 4
+SEED = 0
+
+
+@contextlib.contextmanager
+def _short():
+    """Every shape at ``S`` tokens."""
+    saved = dict(SHAPES)
+    SHAPES.update({n: ShapeSpec(v.name, S, v.global_batch, v.mode) for n, v in saved.items()})
+    try:
+        yield
+    finally:
+        SHAPES.update(saved)
+
+
+def _cell(mode, mesh_shape, param_dtype=torch.bfloat16, grad_accum=None):
+    """The cell's step as the dry run builds it (its microbatch count
+    too, unless ``grad_accum`` is given), its real arguments on the CPU
+    and their shardings."""
+    cfg = get_config(ARCH, smoke=True).scaled(param_dtype=param_dtype)
+    mesh = make_mesh(mesh_shape, ("data", "model"), device="meta")
+    rules = default_rules(mesh, expert_sharding=cfg.expert_sharding)
+    with _short():
+        step, _, shardings, _, grad_accum = dryrun._cell_parts(cfg, SHAPE_OF[mode], mesh, rules, B, grad_accum)
+    params, _ = init_params(torch.Generator().manual_seed(SEED), cfg.scaled(param_dtype=torch.bfloat16),
+                            device="cpu")
+    params = _map(lambda t: t.to(param_dtype) if t.is_floating_point() and t.dtype == torch.bfloat16 else t,
+                  params, lambda t: isinstance(t, torch.Tensor))  # float32: the bf16 draws, widened
+    rng = np.random.default_rng(SEED)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S), dtype=np.int32)) for k in ("tokens", "labels")}
+    args = (params, batch) if mode == "prefill" else (init_train_state(params), batch)
+    return step, args, shardings, grad_accum
+
+
+def _outputs(mode, out):
+    """The outputs held to the plain step's, whole, in float32."""
+    def whole(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).detach().float()
+
+    if mode == "prefill":
+        return {"logits": whole(out)}
+    state, metrics = out
+    res = {"loss": whole(metrics["loss"]), "grad_norm": whole(metrics["grad_norm"])}
+    leaves = []
+    _map(leaves.append, state.opt.m, lambda t: isinstance(t, torch.Tensor))
+    res.update({f"m{i}": whole(t) for i, t in enumerate(leaves)})
+    return res
+
+
+def _worker(rank, init_file, out_dir):
+    """One gloo rank: every (mesh, mode) cell's step on DTensors; rank 0
+    saves the gathered outputs."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=WORLD)
+    try:
+        results = {}
+        for mesh_shape in MESHES:
+            dm = init_device_mesh("cpu", mesh_shape, mesh_dim_names=("data", "model"))
+            for mode in MODES:
+                step, args, shardings, _ = _cell(mode, mesh_shape)
+                args = _map(lambda sh, x: distribute_tensor(x, dm, placements(sh, dm.mesh_dim_names)),
+                            shardings, lambda s: isinstance(s, NamedSharding), args)
+                with torch.no_grad(), implicit_replication():
+                    results[(mesh_shape, mode)] = _outputs(mode, step(*args))
+        if rank == 0:
+            torch.save(results, f"{out_dir}/partitioned.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def partitioned(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("gloo")
+    mp.spawn(_worker, args=(str(tmp / "rendezvous"), str(tmp)), nprocs=WORLD, join=True)
+    return torch.load(tmp / "partitioned.pt")
+
+
+@pytest.fixture(scope="module")
+def plain():
+    """The plain step's outputs in bf16 and float32 for each (mesh, mode),
+    with the mesh's microbatch count (one run for each count)."""
+    runs, out = {}, {}
+    for mesh_shape in MESHES:
+        for mode in MODES:
+            ga = _cell(mode, mesh_shape)[3]
+            if (mode, ga) not in runs:
+                runs[(mode, ga)] = []
+                for dt in (torch.bfloat16, torch.float32):
+                    step, args, _, _ = _cell(mode, (1, 1), dt, ga)
+                    with torch.no_grad():
+                        runs[(mode, ga)].append(_outputs(mode, step(*args)))
+            out[(mesh_shape, mode)] = runs[(mode, ga)]
+    return out
+
+
+def _gap(bf16, f32) -> float:
+    """The plain step's bf16-against-float32 gap: the largest over its
+    outputs of max|Δ| / max|bf16|."""
+    return max(float((bf16[k] - f32[k]).abs().max() / bf16[k].abs().max()) for k in bf16)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_partitioned_step_matches_plain_step(partitioned, plain, mesh, mode):
+    """Each output within twice the plain step's relative gap times its own
+    max|bf16|, as ``GRAD_ATOL_REL_BY_ARCH`` bounds each gradient leaf:
+    the worst output's gap (the first moments', ~1.2e-2; the logits',
+    7.9e-3) sets the bound of all, since a scalar's own gap (the loss's,
+    1.0e-5 of it) is one sample of the rounding, not its size."""
+    got = partitioned[(mesh, mode)]
+    bf16, f32 = plain[(mesh, mode)]
+    assert set(got) == set(bf16) == set(f32)
+    gap = _gap(bf16, f32)
+    assert 1e-3 < gap < 2e-2, gap
+    for k in got:
+        ref = float(bf16[k].abs().max())
+        err = float((got[k] - bf16[k]).abs().max())
+        assert torch.isfinite(got[k]).all() and ref > 0, k
+        assert err <= 2 * gap * ref, (k, err / ref, gap)
