@@ -33,7 +33,9 @@ from .common import (
     local_block,
     mm,
     rmsnorm,
+    row_block,
     split_last,
+    summed_grad,
     whole_grad,
 )
 
@@ -74,9 +76,10 @@ def init_attention(key, cfg: ModelConfig, cross: bool = False, *, device=None):
 
 def _project_qkv(p, cfg: ModelConfig, x, x_kv):
     hd, H, K = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = mm(x, p["wq"])
-    k = mm(x_kv, p["wk"])
-    v = mm(x_kv, p["wv"])
+    # column-parallel: each product's input gradient completed where it is made
+    q = mm(summed_grad(x), p["wq"])
+    k = mm(summed_grad(x_kv), p["wk"])
+    v = mm(summed_grad(x_kv), p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q, k, v = split_last(q, H, hd), split_last(k, K, hd), split_last(v, K, hd)
@@ -223,6 +226,16 @@ def _flash_sdpa(
     return out.reshape(B, S, H, hd)
 
 
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """The heads merged (:func:`_merge_heads`) times ``wo``, row-parallel:
+    each chip multiplies its block of the merged heads by its rows of
+    ``wo`` (:func:`common.row_block`), and ``mm`` sums the partial
+    products, whether or not the heads divide the model axis (40 heads
+    over 16 chips: ``wo`` 's 5,120 rows do), as the reference's
+    partitioner slices the activation."""
+    return mm(row_block(_merge_heads(out), wo), wo)
+
+
 def _merge_heads(out: torch.Tensor) -> torch.Tensor:
     """(B, S, H, hd) -> (B, S, H·hd), pinned to the batch axes on both sides
     of the merge, as q, k and v are (an identity on plain tensors).  Left
@@ -267,7 +280,7 @@ def attention(
             mask = _mask(x.shape[1], x_kv.shape[1], 0, causal, cfg.sliding_window,
                          cfg.attn_chunk, device=x.device)
         out = _sdpa(q, k, v, mask)
-    return mm(_merge_heads(out), even_heads(p["wo"], 0, cfg.n_heads))
+    return _out_proj(out, p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -343,7 +356,7 @@ def decode_attention(
         q = constrain_batch(q)
         mask = torch.ones((1, k_all.shape[1]), dtype=torch.bool, device=x.device)
         out = _sdpa(q, k_all, v_all, mask)
-        return mm(_merge_heads(out), even_heads(p["wo"], 0, cfg.n_heads)), cache
+        return _out_proj(out, p["wo"]), cache
 
     B = x.shape[0]
     pos = cache.length  # 0-d absolute position of the new token (on the device)
@@ -375,4 +388,4 @@ def decode_attention(
         valid &= (abs_pos // cfg.attn_chunk) == (pos // cfg.attn_chunk)
     out = _sdpa(q, cache.k, cache.v, valid[None, :])
     new_cache = KVCache(k=cache.k, v=cache.v, length=pos + 1)
-    return mm(_merge_heads(out), even_heads(p["wo"], 0, cfg.n_heads)), new_cache
+    return _out_proj(out, p["wo"]), new_cache

@@ -47,6 +47,8 @@ __all__ = [
     "split_last",
     "whole_grad",
     "summed",
+    "summed_grad",
+    "row_block",
     "mm",
     "einsum",
     "even_heads",
@@ -60,6 +62,9 @@ __all__ = [
     "sinusoidal_rows",
     "init_params_shapes",
 ]
+
+#: the mesh axes over which a weight's ``"embed"`` dim is FSDP-sharded
+FSDP_AXES = ("pod", "data")
 
 
 @dataclass(frozen=True)
@@ -257,7 +262,7 @@ def fsdp_gathered(w: torch.Tensor) -> torch.Tensor:
         return w
     mesh = w.device_mesh
     names = mesh.mesh_dim_names or ()
-    pl = [Replicate() if names[i] in ("pod", "data") and mesh.size(i) > 1 else p
+    pl = [Replicate() if names[i] in FSDP_AXES and mesh.size(i) > 1 else p
           for i, p in enumerate(w.placements)]
     return w if pl == list(w.placements) else w.redistribute(mesh, pl)
 
@@ -269,11 +274,12 @@ def whole_grad(x: torch.Tensor, dim: int) -> torch.Tensor:
     backward splits ``dim``: attention's merge of the K groups' heads,
     whose gradient may come back sharded over the H heads (as ``wo`` 's
     rows are) over a model axis that does not divide K (2 groups on 4
-    chips), which DTensor cannot split.  The identity on a plain tensor and
-    where ``dim`` is sharded."""
-    if isinstance(x, DTensor) and not any(p.is_shard(dim % x.ndim) for p in x.placements):
-        return x.redistribute(x.device_mesh, x.placements)
-    return x
+    chips), which DTensor cannot split: :func:`summed_grad` where ``dim``
+    is whole.  The identity on a plain tensor and where ``dim`` is
+    sharded."""
+    if isinstance(x, DTensor) and any(p.is_shard(dim % x.ndim) for p in x.placements):
+        return x
+    return summed_grad(x)
 
 
 def summed(x: torch.Tensor) -> torch.Tensor:
@@ -286,6 +292,27 @@ def summed(x: torch.Tensor) -> torch.Tensor:
     if isinstance(x, DTensor) and any(p.is_partial() for p in x.placements):
         return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p for p in x.placements])
     return x
+
+
+def summed_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is (no collective forward), its gradient completed where
+    it is made: DTensor's redistribute to ``x`` 's own placements, whose
+    backward brings the gradient back to them, so a ``Partial`` sum over
+    the model axis is all-reduced to ``Replicate`` there.  :func:`summed`
+    's rule applied to the gradient, as the reference's partitioner
+    reduces a dot's partial output backward as well as forward.  For the
+    input of a column-parallel product (``wq``, ``wk``, ``wv``,
+    ``w_gate``, ``w_up``, ``lm_head``), replicated over the model axis,
+    whose gradient the product returns as a partial sum: one all-reduce
+    at the residual's width (B·S·D) per product, as the reference's
+    lowering on ``Auto`` mesh axes all-reduces each product's input
+    gradient as its own operand (q, k and v's three in one combined
+    all-reduce, gate and up's two in another; held by
+    ``tests/test_torch_partition.py``).  Left partial, DTensor
+    carries the sums through the norm and the residual into the next
+    product's backward, which reduce-scatters them at that product's
+    width.  The identity on a plain tensor."""
+    return x.redistribute(x.device_mesh, x.placements) if isinstance(x, DTensor) else x
 
 
 def local_block(x: DTensor, dim: int, *others: DTensor):
@@ -340,6 +367,25 @@ def even_heads(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
     return x
 
 
+def row_block(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x`` for the product ``x @ w``, its last dim (the contraction)
+    laid out as ``w`` 's rows on the tensor-parallel mesh axes: where ``w``
+    's rows are sharded over such an axis and ``x`` is replicated on it,
+    ``x`` takes its local block of the contraction (``Replicate`` ->
+    ``Shard``: a slice, no collective), and :func:`mm` completes the
+    partial sums.  So a row-parallel product (``wo``) runs on each chip's
+    rows of the weight even where the heads do not divide the model axis,
+    as the reference's partitioner slices the activation; its backward
+    gathers the gradient's blocks.  The FSDP axes (:data:`FSDP_AXES`) are
+    left to :func:`fsdp_gathered`.  The identity on plain tensors."""
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
+        return x
+    names = x.device_mesh.mesh_dim_names or ()
+    pl = [Shard(x.ndim - 1) if q.is_shard(0) and p.is_replicate() and names[i] not in FSDP_AXES else p
+          for i, (p, q) in enumerate(zip(x.placements, w.placements))]
+    return x if pl == list(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
 def split_last(x: torch.Tensor, n: int, size: int) -> torch.Tensor:
     """``x`` (..., n * size) as (..., n, size), its ``n`` heads whole on
     every chip that holds any (:func:`even_heads`)."""
@@ -391,9 +437,14 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last dim, in float32.  Where that dim is sharded
+    (the SSD's gated norm over ``d_inner``), the mean's partial sums are
+    completed at (B, S, 1), forward and backward (:func:`summed`,
+    :func:`summed_grad`): left partial, the gradient is expanded to the
+    full width first and reduce-scattered there."""
     dtype = x.dtype
     x = x.float()
-    var = torch.mean(x * x, dim=-1, keepdim=True)
+    var = summed_grad(summed(torch.mean(x * x, dim=-1, keepdim=True)))
     out = x * torch.rsqrt(var + eps)
     return (out * (1.0 + gamma.float())).to(dtype)
 

@@ -37,6 +37,7 @@ from .common import (
     param_device,
     promoted,
     silu,
+    summed_grad,
 )
 
 __all__ = [
@@ -80,9 +81,10 @@ def init_mlp(key: Union[int, torch.Generator], cfg: ModelConfig, d_ff: Optional[
 
 
 def mlp(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    # column-parallel: each product's input gradient completed where it is made
     if cfg.mlp_type == "swiglu":
-        return mm(silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]), p["w_down"])
-    h = gelu_tanh(mm(x, p["w_up"]) + p["b_up"])
+        return mm(silu(mm(summed_grad(x), p["w_gate"])) * mm(summed_grad(x), p["w_up"]), p["w_down"])
+    h = gelu_tanh(mm(summed_grad(x), p["w_up"]) + p["b_up"])
     return mm(h, p["w_down"]) + p["b_down"]
 
 

@@ -20,7 +20,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from .._device import make_generator, resolve_device
-from .common import ModelConfig, gathered, gelu_tanh, init_dense, mm, param_device, sigmoid, softplus
+from .common import ModelConfig, gathered, gelu_tanh, init_dense, mm, param_device, sigmoid, softplus, summed_grad
 
 __all__ = [
     "init_rglru_block",
@@ -153,8 +153,9 @@ def _combine(c1, c2):
 
 def rglru_forward(p, cfg: ModelConfig, u: torch.Tensor) -> torch.Tensor:
     """Full-sequence Griffin recurrent block.  u: (B, S, D)."""
-    gate = gelu_tanh(mm(u, p["w_gate_branch"]))
-    x, _ = _conv(mm(u, p["w_rec_branch"]), p["conv_w"])
+    # column-parallel: each product's input gradient completed where it is made
+    gate = gelu_tanh(mm(summed_grad(u), p["w_gate_branch"]))
+    x, _ = _conv(mm(summed_grad(u), p["w_rec_branch"]), p["conv_w"])
     a, b = _gates(p, x)  # (B,S,W) f32
     _, h = associative_scan(_combine, (a, b), dim=1)
     y = h.to(u.dtype) * gate

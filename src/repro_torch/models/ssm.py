@@ -30,6 +30,7 @@ from .common import (
     rmsnorm,
     silu,
     softplus,
+    summed_grad,
 )
 
 __all__ = ["init_ssd", "ssd_forward", "ssd_decode_step", "SSDState", "init_ssd_state"]
@@ -84,8 +85,9 @@ def _split_proj(p, cfg, x):
     # pinned to the batch axes, its gradient too: split into z, x, B, C and
     # dt across its model-axis shard, and the heads split out of those, the
     # backward's views are strided shardings that DTensor plans by graph
-    # search (and torch 2.11 refuses)
-    proj = constrain_batch(mm(x, p["w_in"]))
+    # search (and torch 2.11 refuses); column-parallel, its input gradient
+    # completed where it is made
+    proj = constrain_batch(mm(summed_grad(x), p["w_in"]))
     z, xbc, dt = torch.split(proj, [d_inner, d_inner + 2 * N, H], dim=-1)
     return z, xbc, dt
 

@@ -49,6 +49,7 @@ from .common import (
     rmsnorm,
     sinusoidal_rows,
     summed,
+    summed_grad,
 )
 from .moe import init_mlp, init_moe, mlp, moe
 from .rglru import init_rglru_block, init_rglru_state, rglru_decode_step, rglru_forward
@@ -301,7 +302,7 @@ def forward_train(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     if return_hidden:
         return x, stats
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = mm(x, params["lm_head"])
+    logits = mm(summed_grad(x), params["lm_head"])
     return logits, stats
 
 

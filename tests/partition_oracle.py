@@ -15,9 +15,32 @@ partitioned dry run is held against these numbers
 
 each cell ``[arch, mode, [data, model], batch, seq]`` (decode: ``seq``
 is the cache's context), or with a sixth entry, a dict of
-``ModelConfig.scaled`` overrides of that cell's SMOKE config.  Each line
-also holds ``collectives_by_dtype``: the same bytes split by the dtype of
-each collective's result shapes.  With ``--port`` each line also holds the
+``ModelConfig.scaled`` overrides of that cell's SMOKE config, and a
+seventh, ``"auto"``, for a mesh whose axes are ``AxisType.Auto`` (see
+below).  Each line also holds ``collectives_by_dtype``: the same bytes
+split by the dtype of each collective's result shapes;
+``flops_per_chip``: the compiled program's ``cost_analysis()`` FLOPs (a
+scan's body counted once); and ``wo_dots``: the result and operand shapes
+of each forward dot that the reference's ``... @ p["wo"]`` lowers to
+(found by the HLO's stack frames; a backward dot's innermost frame is
+its remat's checkpoint); ``all_reduce_operands``: the all-reduces'
+operands over one step, ``{axes: {elements: count}}``, each counted as
+often as the loops around it run (``loop_trips``; the byte totals above
+count a loop's body once) and keyed by the mesh axes its replica group
+spans (``"model"``, ``"data"``, ``"model[2]"`` for a group of 2 chips of
+the model axis); and ``dot_all_reduces``: for each all-reduce whose
+operands all come from dots, ``[axes, backward, widths]``, the width each
+operand's dot contracts over (a backward all-reduce's ``op_name`` is a
+``transpose``).
+
+``jax.make_mesh`` 's axes are ``Explicit`` under this jax, where the
+reference's ``constrain_batch`` (a ``with_sharding_constraint``, which
+asserts on an explicit mesh) falls back to a no-op: every activation is
+replicated, every weight gathered, and each chip computes the whole
+step, so the lowering shows no tensor-parallel product.  An ``"auto"``
+cell lowers the same step on ``Auto`` axes, where the constraints act and
+GSPMD partitions each product as the reference's sharding was written
+for.  With ``--port`` each line also holds the
 port's ``plan_cell`` of the same cell (the step on DTensors over the same
 mesh on a fake process group) and the ratio of the two collective totals.
 ``--scaled '{"d_model": 1024, "head_dim": 256, "d_ff": 4096}'`` widens
@@ -26,6 +49,7 @@ without overrides of its own.
 """
 import json
 import os
+import re
 import sys
 
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
@@ -35,7 +59,7 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-from jax.sharding import NamedSharding, PartitionSpec  # noqa: E402
+from jax.sharding import AxisType, NamedSharding, PartitionSpec  # noqa: E402
 
 from repro.configs import get_config  # noqa: E402
 from repro.dist.sharding import batch_sharding, default_rules, tree_shardings  # noqa: E402
@@ -74,9 +98,131 @@ def collectives_by_dtype(hlo_text: str) -> dict:
     return out
 
 
-def lower(arch: str, mode: str, mesh_shape, B: int, S: int, scaled=None) -> dict:
+#: the reference's lines that multiply by ``wo``
+with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src", "repro", "models",
+                       "attention.py")) as _f:
+    WO_LINES = {i + 1 for i, line in enumerate(_f) if '@ p["wo"]' in line}
+
+
+def _instructions(hlo_text: str) -> dict:
+    """``{name: (result, op, operands, line)}`` of every instruction."""
+    out = {}
+    for m in re.finditer(r"^\s*(?:ROOT )?%(\S+) = (\(.*?\)|\w+\[[\d,]*\])\S* ([\w-]+)\(([^)]*)\)(.*)$",
+                         hlo_text, re.M):
+        out[m.group(1)] = (m.group(2), m.group(3), re.findall(r"%([\w.-]+)", m.group(4)), m.group(5))
+    return out
+
+
+def wo_dots(hlo_text: str) -> list:
+    """``[result, lhs, rhs]`` shapes of each dot whose innermost stack frame
+    is a line of the reference's attention that multiplies by ``wo``."""
+    files = dict(re.findall(r'^(\d+) "([^"]+)"$', hlo_text.split("\nFunctionNames\n")[0], re.M))
+    locs = {i: (f, int(n)) for i, f, n in re.findall(r"^(\d+) \{file_name_id=(\d+) function_name_id=\d+ line=(\d+)",
+                                                     hlo_text, re.M)}
+    frames = dict(re.findall(r"^(\d+) \{file_location_id=(\d+) parent", hlo_text, re.M))
+    insts = _instructions(hlo_text)
+    out = []
+    for result, op, args, rest in insts.values():
+        frame = re.search(r"stack_frame_id=(\d+)", rest)
+        if op == "dot" and frame:
+            f, n = locs[frames[frame.group(1)]]
+            if files[f].endswith(os.path.join("repro", "models", "attention.py")) and n in WO_LINES:
+                out.append([result, insts[args[0]][0], insts[args[1]][0]])
+    return out
+
+
+def loop_trips(hlo_text: str) -> dict:
+    """``{computation: times it runs in one step}``: the product of the
+    known trip counts of the ``while`` loops around it (1 for the entry
+    and for a computation called outside any loop)."""
+    comps, entry, cur = {}, None, None
+    for line in hlo_text.splitlines():
+        m = re.match(r"^(ENTRY )?%(\S+) .*\{$", line)
+        if m:
+            cur = m.group(2)
+            comps[cur] = []
+            entry = cur if m.group(1) else entry
+        elif cur is not None and line.startswith("  "):
+            comps[cur].append(line)
+    callers: dict = {}
+    for c, lines in comps.items():
+        for line in lines:
+            trip = re.search(r'known_trip_count":\{"n":"(\d+)"', line)
+            for key, name in re.findall(r"(body|condition|to_apply|calls)=%([\w.-]+)", line):
+                callers.setdefault(name, []).append((c, int(trip.group(1)) if key == "body" and trip else 1))
+            for group in re.findall(r"branch_computations=\{([^}]*)\}", line):
+                for name in re.findall(r"%([\w.-]+)", group):
+                    callers.setdefault(name, []).append((c, 1))
+    trips = {entry: 1}
+
+    def times(c):
+        if c not in trips:
+            trips[c] = 0
+            trips[c] = sum(times(caller) * n for caller, n in callers.get(c, []))
+        return trips[c]
+
+    return {c: (times(c), lines) for c, lines in comps.items()}
+
+
+def _group_axes(rhs: str, mesh_shape) -> str:
+    """The mesh axes that a collective's first replica group spans, with
+    the group's size in brackets where it is only part of them."""
+    m = re.search(r"replica_groups=\[(\d+),(\d+)\]<=\[([\d,]+)\](?:T\(([\d,]+)\))?", rhs)
+    if m:
+        ids = np.arange(int(np.prod([int(d) for d in m.group(3).split(",")]))).reshape(
+            [int(d) for d in m.group(3).split(",")])
+        if m.group(4):
+            ids = ids.transpose([int(p) for p in m.group(4).split(",")])
+        group = ids.reshape(int(m.group(1)), int(m.group(2)))[0].tolist()
+    else:
+        m = re.search(r"replica_groups=\{\{([\d,]+)\}", rhs)
+        group = [int(i) for i in m.group(1).split(",")] if m else list(range(int(np.prod(mesh_shape))))
+    coords = np.array([np.unravel_index(i, tuple(mesh_shape)) for i in group])
+    axes = [a for i, a in enumerate(("data", "model")) if len(set(coords[:, i])) > 1]
+    whole = len(group) == int(np.prod([mesh_shape[("data", "model").index(a)] for a in axes]))
+    return "+".join(axes) + ("" if whole else f"[{len(group)}]")
+
+
+def all_reduces(hlo_text: str, mesh_shape):
+    """``(all_reduce_operands, dot_all_reduces)`` of the module (see the
+    module's doc)."""
+    insts = _instructions(hlo_text)
+    operands: dict = {}
+    dots = []
+
+    def dot_width(name):
+        for _ in range(4):  # through the converts and bitcasts XLA fuses after a dot
+            result, op, args, rest = insts[name]
+            if op == "dot":
+                dims = re.search(r"lhs_contracting_dims=\{([\d,]*)\}", rest).group(1)
+                lhs = [int(d) for d in re.search(r"\[([\d,]*)\]", insts[args[0]][0]).group(1).split(",")]
+                return int(np.prod([lhs[int(d)] for d in dims.split(",")]))
+            if len(args) != 1 or op not in ("fusion", "convert", "bitcast", "copy", "reshape"):
+                return None
+            name = args[0]
+        return None
+
+    for times, lines in loop_trips(hlo_text).values():
+        for line in lines:
+            m = re.match(r"\s*(?:ROOT )?%(\S+) = (.*?) all-reduce(?:-start)?\(", line)
+            if not m or not times:
+                continue
+            axes = _group_axes(line, mesh_shape)
+            by = operands.setdefault(axes, {})
+            for _, dims in _SHAPE_RE.findall(m.group(2)):
+                n = str(int(np.prod([int(d) for d in dims.split(",") if d])))
+                by[n] = by.get(n, 0) + times
+            widths = [dot_width(a) for a in insts[m.group(1)][2]]
+            if all(w is not None for w in widths):
+                op_name = re.search(r'op_name="([^"]*)"', line)
+                dots.append([axes, bool(op_name and "transpose(" in op_name.group(1)), widths])
+    return operands, dots
+
+
+def lower(arch: str, mode: str, mesh_shape, B: int, S: int, scaled=None, axes=None) -> dict:
     cfg = get_config(arch, smoke=True).scaled(**(SCALED if scaled is None else scaled))
-    mesh = jax.make_mesh(tuple(mesh_shape), ("data", "model"))
+    mesh = jax.make_mesh(tuple(mesh_shape), ("data", "model"),
+                         **({"axis_types": (AxisType.Auto,) * 2} if axes == "auto" else {}))
     rules = default_rules(mesh, expert_sharding=cfg.expert_sharding)
     box = {}
 
@@ -114,13 +260,16 @@ def lower(arch: str, mode: str, mesh_shape, B: int, S: int, scaled=None) -> dict
                     state, batch)
         compiled = lowered.compile()
     text = compiled.as_text()
+    operands, dots = all_reduces(text, mesh_shape)
     return {"arch": arch, "mode": mode, "mesh": list(mesh_shape), "batch": B, "seq": S,
-            "scaled": SCALED if scaled is None else scaled,
+            "scaled": SCALED if scaled is None else scaled, "axes": axes or "explicit",
             "collectives": parse_collectives(text), "collectives_by_dtype": collectives_by_dtype(text),
-            "temp_bytes": compiled.memory_analysis().temp_size_in_bytes}
+            "temp_bytes": compiled.memory_analysis().temp_size_in_bytes,
+            "flops_per_chip": compiled.cost_analysis()["flops"], "wo_dots": wo_dots(text),
+            "all_reduce_operands": operands, "dot_all_reduces": dots}
 
 
-def plan(arch: str, mode: str, mesh_shape, B: int, S: int, scaled=None) -> dict:
+def plan(arch: str, mode: str, mesh_shape, B: int, S: int, scaled=None, axes=None) -> dict:
     """The port's plan of the same cell."""
     from repro_torch.configs import get_config as port_config
     from repro_torch.configs.shapes import SHAPES, ShapeSpec
@@ -145,7 +294,7 @@ if __name__ == "__main__":
         row = lower(*cell)
         if "--port" in sys.argv[2:]:
             port = plan(*cell)
-            row["port"] = {"collectives": port["collectives"],
+            row["port"] = {"collectives": port["collectives"], "flops_per_chip": port["flops_per_chip"],
                            "temp_bytes": port["memory_analysis"]["temp_bytes"]}
             ref_total = row["collectives"]["total_per_chip_bytes"]
             row["ratio"] = port["collectives"]["total_per_chip_bytes"] / ref_total if ref_total else None

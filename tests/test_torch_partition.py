@@ -9,7 +9,13 @@ local ops and collectives add up to.
   bytes per chip within 2x of the reference's on the (8, 1) and (4, 2)
   meshes and, for qwen3-14b, on (2, 4), whose model axis does not divide
   the KV heads, and for qwen3-14b widened to d_model 1024 at 32 x 256
-  (prefill and train on (8, 1) and (4, 2), decode on (8, 1)); on (1, 8)
+  (prefill and train on (8, 1) and (4, 2), decode on (8, 1)), and at
+  d_model 1280 with 10 heads on (2, 4), whose model axis divides ``wo`` 's
+  rows but not the heads; on that train cell ``wo`` runs on its row shard
+  as the reference lowers it on ``Auto`` mesh axes, its FLOPs per chip a
+  quarter of the gathered form's, and the port's model-axis all-reduces
+  are that lowering's operand for operand (one per column-parallel
+  product's input gradient) but the loss's logsumexp; on (1, 8)
   (no data axis) the ratio is pinned with the op that makes it; on (8, 1)
   the port's collectives are the ZeRO-3 traffic of the param tree counted
   by hand, and where that is under half the reference's bytes (whose host
@@ -17,9 +23,10 @@ local ops and collectives add up to.
   lowers no MoE cell (mixtral-8x7b), which the port plans;
 * exact counts: the collectives and FLOPs of one batch-sharded input
   times one FSDP-sharded weight, forward and backward, worked out by hand,
-  as a plain product and through ``common.mm``, which gathers the weight;
-  every count at two and three layer groups extended to five equal to
-  the count of the five-group step; the local FLOPs of a pure data-parallel
+  as a plain product and through ``common.mm``, which gathers the weight,
+  and of a column-parallel product whose input gradient ``summed_grad``
+  all-reduces once; every count at two and three layer groups extended
+  to five equal to the count of the five-group step; the local FLOPs of a pure data-parallel
   cell times its chips equal to the one-chip count; the temporaries on
   ``meta`` equal to the same tracker's over real CPU tensors, plain and as
   DTensors over sharded meshes (``chip_smoke.py`` phase 10c holds the
@@ -50,7 +57,7 @@ from repro_torch.dist.sharding import (NamedSharding, P, default_rules, fake_dev
                                       to_dtensor)
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.models import common, init_params
+from repro_torch.models import attention, common, init_params
 from repro_torch.models.attention import _write_slot_
 from repro_torch.train import optimizer
 from test_torch_launch import _args, _deeper
@@ -71,6 +78,18 @@ WIDE = {"d_model": 1024, "head_dim": 256, "d_ff": 4096}
 WIDE_B, WIDE_S = 32, 256
 WIDE_CELLS = [("qwen3-14b", m, mesh, "d1024") for m, mesh in (
     ("prefill", (8, 1)), ("prefill", (4, 2)), ("train", (4, 2)), ("train", (8, 1)), ("decode", (8, 1)))]
+#: qwen3-14b's SMOKE config at d_model 1280 with 10 query heads and 2 KV
+#: heads, which a model axis of 4 does not divide while it divides
+#: ``wo`` 's H·hd = 1280 rows, as Qwen3-14B's 40 heads on 16 chips (5,120
+#: rows), at 32 x 256: a cell ``(arch, mode, mesh, "u1280")``
+UNEVEN_WIDE = {"d_model": 1280, "n_heads": 10, "n_kv_heads": 2, "head_dim": 128, "d_ff": 4096}
+UNEVEN_WIDE_CELLS = [("qwen3-14b", m, (2, 4), "u1280") for m in ("prefill", "train")]
+#: the reference's lowering of the uneven train cell on ``AxisType.Auto``
+#: mesh axes (``tests/partition_oracle.py``), whose ``wo`` dot it reads
+WO_CELL = ("qwen3-14b", "train", (2, 4), "u1280")
+AUTO_CELLS = [WO_CELL + ("auto",)]
+#: each width's ``ModelConfig.scaled`` overrides, batch and tokens
+WIDTHS = {"d1024": (WIDE, WIDE_B, WIDE_S), "u1280": (UNEVEN_WIDE, WIDE_B, WIDE_S)}
 
 
 def _short(monkeypatch_ctx, seq: int = S) -> None:
@@ -89,10 +108,13 @@ def _warm_count(step, args, again):
 
 
 def _size(cell):
-    """A cell's SMOKE config (widened for a ``"d1024"`` cell), batch and
-    tokens."""
+    """A cell's SMOKE config (widened for a ``"d1024"`` or ``"u1280"``
+    cell), batch and tokens."""
     cfg = get_config(cell[0], smoke=True)
-    return (cfg.scaled(**WIDE), WIDE_B, WIDE_S) if cell[3:] == ("d1024",) else (cfg, B, S)
+    if len(cell) > 3:
+        scaled, b, s = WIDTHS[cell[3]]
+        return cfg.scaled(**scaled), b, s
+    return cfg, B, S
 
 
 def _plan(arch, mode, mesh_shape, *width, **kw):
@@ -107,24 +129,34 @@ def _oracle(cells):
     """The reference's partitioned program of ``cells`` (one subprocess)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
-    cells = [[a, m, list(mesh), WIDE_B, WIDE_S, WIDE] if width else [a, m, list(mesh), B, S]
-             for a, m, mesh, *width in cells]
+
+    def spec(a, m, mesh, width=None, *axes):
+        if width is None:
+            return [a, m, list(mesh), B, S]
+        scaled, b, s = WIDTHS[width]
+        return [a, m, list(mesh), b, s, scaled, *axes]
+
+    cells = [spec(*c) for c in cells]
     return subprocess.run([sys.executable, str(ROOT / "tests" / "partition_oracle.py"), json.dumps(cells)],
                           env=env, capture_output=True, text=True, timeout=900)
 
 
 @pytest.fixture(scope="module")
 def oracle():
-    """The reference's collectives and temporaries per cell."""
-    out = _oracle(ORACLE_CELLS + WIDE_CELLS)
+    """The reference's collectives, temporaries, FLOPs and ``wo`` dots per
+    cell."""
+    out = _oracle(ORACLE_CELLS + WIDE_CELLS + UNEVEN_WIDE_CELLS + AUTO_CELLS)
     assert out.returncode == 0, out.stderr[-4000:]
     rows = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
-    return {(r["arch"], r["mode"], tuple(r["mesh"])) + (("d1024",) if r["scaled"] else ()): r for r in rows}
+    width = {json.dumps(v[0], sort_keys=True): k for k, v in WIDTHS.items()}
+    return {(r["arch"], r["mode"], tuple(r["mesh"])) + ((width[json.dumps(r["scaled"], sort_keys=True)],)
+                                                        if r["scaled"] else ()) +
+            (("auto",) if r["axes"] == "auto" else ()): r for r in rows}
 
 
 @pytest.fixture(scope="module")
 def plans():
-    return {cell: _plan(*cell) for cell in ORACLE_CELLS + WIDE_CELLS}
+    return {cell: _plan(*cell) for cell in ORACLE_CELLS + WIDE_CELLS + UNEVEN_WIDE_CELLS}
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +172,7 @@ def test_one_chip_has_no_collectives(oracle, plans, arch, mode):
 
 #: cells whose collective bytes are pinned by their own test, not held to
 #: 2x: the port / reference ratio of the totals as measured
-PINNED = {("qwen3-14b", "prefill", (1, 8)): 6.31, ("qwen3-14b", "train", (1, 8)): 25.67}
+PINNED = {("qwen3-14b", "prefill", (1, 8)): 7.19, ("qwen3-14b", "train", (1, 8)): 15.23}
 #: pure data-parallel cells whose collectives are the hand-counted ZeRO-3
 #: traffic (``zero3_bytes``) where the reference all-reduces in float32:
 #: the port / reference ratio of the collectives' elements, as measured
@@ -149,7 +181,8 @@ ZERO3 = {("qwen3-14b", "train", (8, 1)): 0.50, ("mamba2-780m", "train", (8, 1)):
 #: the cells held to 2x, with the ids they had before the ZeRO-3 cells left
 _OFF_ONE_CHIP = [c for c in ORACLE_CELLS if c[2] != (1, 1) and c not in PINNED]
 BANDED = [pytest.param(c, id=f"{c[0]}-{c[1]}-mesh{i}") for i, c in enumerate(_OFF_ONE_CHIP) if c not in ZERO3] + \
-    [pytest.param(c, id=f"{c[0]}-{c[1]}-{c[2][0]}x{c[2][1]}-{c[3]}") for c in WIDE_CELLS if c not in ZERO3]
+    [pytest.param(c, id=f"{c[0]}-{c[1]}-{c[2][0]}x{c[2][1]}-{c[3]}") for c in WIDE_CELLS + UNEVEN_WIDE_CELLS
+     if c not in ZERO3]
 
 
 @pytest.mark.parametrize("cell", BANDED)
@@ -164,13 +197,12 @@ def test_collective_bytes_within_twice_the_reference(oracle, plans, cell):
 
 @pytest.mark.parametrize("cell", list(PINNED))
 def test_tensor_parallel_partial_sums_where_the_reference_gathers_weights(oracle, plans, cell):
-    """With no data axis (8 model chips) GSPMD gathers the SMOKE width's
-    small weights and runs every product whole on every chip; the port's
-    ``common.mm`` keeps each product sharded and sums its partial sums over
-    the model axis (``summed`` 's all-reduce forward, DTensor's
-    reduce-scatter of the activations' gradient backward).  GSPMD's choice
-    follows its cost of the two at this width, which a fixed rule cannot
-    follow (ROADMAP queue 3).  The totals keep the measured ratio, the
+    """With no data axis (8 model chips) the reference's lowering gathers
+    the SMOKE width's small weights and runs every product whole on every
+    chip; the port's ``common.mm`` keeps each product sharded and sums its
+    partial sums over the model axis (``summed`` 's all-reduce forward,
+    ``summed_grad`` 's at each column-parallel product's input backward,
+    and ``wo`` on its row shard).  The totals keep the measured ratio, the
     all-gathers stay within 2x, and the excess is all-reduce and
     reduce-scatter."""
     ref, port = oracle[cell]["collectives"]["bytes_by_kind"], plans[cell]["collectives"]["bytes_by_kind"]
@@ -418,6 +450,179 @@ def test_gathered_weight_product_forward_and_backward_by_hand():
     assert counts["flops"] == 3 * 2 * 64 * 32 * 48 // 8  # y = x w, dx = dy w^T, dw = x^T dy
 
 
+def test_column_parallel_input_gradient_completed_by_hand():
+    """``common.mm(common.summed_grad(x), w).square().sum()`` and its
+    backward on a (1, 2) mesh, x (4, 8, 32) replicated over ``model``, w
+    (32, 48) sharded on its columns, bf16.  Forward: no collective, each
+    chip its 24 columns of y.  Backward: dx = dy w^T contracts over the
+    sharded columns, a partial sum that ``summed_grad`` all-reduces once,
+    x's whole B·S·D = 4·8·32 elements, to ``Replicate`` over ``model``
+    (without the form dx stays ``Partial``); dw = x^T dy lands on w's
+    shard with no collective.  Each of the three products is half the
+    whole."""
+    mesh = make_mesh((1, 2), ("data", "model"), device="meta")
+    x = torch.empty(4, 8, 32, dtype=torch.bfloat16, device="meta")
+    w = torch.empty(32, 48, dtype=torch.bfloat16, device="meta")
+
+    def forward(x, w):
+        return common.mm(common.summed_grad(x), w)
+
+    def step(x, w, form=common.summed_grad):
+        w.requires_grad_(True)
+        x.requires_grad_(True)
+        with torch.enable_grad():
+            common.mm(form(x), w).square().sum().backward()
+        return x.grad
+
+    with fake_device_mesh(mesh) as dm:
+        def args():
+            return (to_dtensor(NamedSharding(mesh, P()), x, dm),
+                    to_dtensor(NamedSharding(mesh, P(None, "model")), w, dm))
+
+        fwd, y = dryrun.count_step(dryrun.StepCount(), forward, args())
+        assert y.placements == (Replicate(), Shard(2)) and y.to_local().shape == (4, 8, 24)
+        counts, dx = dryrun.count_step(dryrun.StepCount(), step, args())
+        assert dx.placements == (Replicate(), Replicate()) and dx.to_local().shape == (4, 8, 32)
+        _, partial = dryrun.count_step(dryrun.StepCount(), lambda x, w: step(x, w, lambda t: t), args())
+        assert partial.placements == (Replicate(), Partial())
+    assert not any(v for k, v in fwd.items() if k.endswith("_count"))
+    assert counts["all-reduce_count"] == 1 and counts["all-reduce_bytes"] == 4 * 8 * 32 * 2
+    assert sum(counts[f"{k}_count"] for k in dryrun.COLLECTIVE_KINDS) == 1
+    assert counts["flops"] == 3 * 2 * 4 * 8 * 32 * 48 // 2  # y = x w, dx = dy w^T, dw = x^T dy
+
+
+def _shape(hlo: str):
+    """``"f32[1024,320]"`` -> (1024, 320)."""
+    return tuple(int(d) for d in hlo[hlo.index("[") + 1:-1].split(","))
+
+
+class _ForwardProducts(dryrun.StepCount):
+    """``StepCount`` that also keeps the local operand shapes of every
+    ``mm`` of the forward (no autograd node running: not the backward nor
+    the remat's recompute)."""
+
+    def start(self, args):
+        super().start(args)
+        self.products = set()
+
+    def _local_op(self, func, args, kwargs):
+        if func is torch.ops.aten.mm.default and torch._C._current_autograd_node() is None:
+            self.products.add(tuple(tuple(dryrun._local(a).shape) for a in args[:2]))
+        return super()._local_op(func, args, kwargs)
+
+
+def test_wo_runs_on_its_row_shard_as_the_reference_lowers_it(oracle):
+    """The uneven-heads train cell (10 heads, a model axis of 4 that
+    divides ``wo`` 's 1,280 rows).  The reference's lowering on ``Auto``
+    mesh axes, where its sharding constraints act, runs ``wo`` 's forward
+    dot on a row shard, [1024, 320] x [320, 1280], and all-reduces the
+    partial sums; on the oracle's default ``Explicit`` axes its
+    ``constrain_batch`` is a no-op and every product, ``wo`` 's too, runs
+    whole on the gathered weight over the whole microbatch.  The port's
+    forward multiplies the same blocks (each chip its 320 rows of ``wo``,
+    ``common.row_block``), and ``wo`` 's FLOPs per chip over the step (the
+    forward, the remat's recompute, dx and dw in each layer and
+    microbatch) are a quarter of those with its rows gathered, counted
+    by ``StepCount``."""
+    (auto,) = oracle[WO_CELL + ("auto",)]["wo_dots"]
+    (explicit,) = oracle[WO_CELL]["wo_dots"]
+    cfg, b, s = _size(WO_CELL)
+    rows_block, hd_rows, d = cfg.n_heads * cfg.hd // 4, cfg.n_heads * cfg.hd, cfg.d_model
+    assert _shape(auto[2]) == (rows_block, d) and _shape(auto[1])[1] == rows_block
+    assert _shape(explicit[2]) == (hd_rows, d)
+    assert oracle[WO_CELL + ("auto",)]["collectives"]["bytes_by_kind"]["all-reduce"] > 0
+    mesh = make_mesh(WO_CELL[2], ("data", "model"), device="meta")
+
+    def count(out_proj=None):
+        with pytest.MonkeyPatch.context() as mp, fake_device_mesh(mesh) as dm:
+            _short(mp, s)
+            if out_proj is not None:
+                mp.setattr(attention, "_out_proj", out_proj)
+            counter = _ForwardProducts()
+            step, args = dryrun.cell_step(cfg, SHAPE_OF["train"], mesh, dm, batch_override=b)
+            counts, _ = dryrun.count_step(counter, step, args)
+            return counts["flops"], counter.products
+
+    flops, products = count()
+    assert (_shape(auto[1]), _shape(auto[2])) in products
+    assert not any(rhs == (hd_rows, d) for _, rhs in products)
+    gathered_flops, _ = count(lambda out, wo: common.mm(attention._merge_heads(out), common.gathered(wo, 0)))
+    microbatches = b // (WO_CELL[2][0] * 4)
+    rows = b // microbatches // WO_CELL[2][0] * s
+    wo_whole = 4 * 2 * rows * hd_rows * d * cfg.n_layers * microbatches
+    assert gathered_flops - flops == wo_whole * 3 // 4
+
+
+class _AllReducesByAxis(dryrun.StepCount):
+    """``StepCount`` that also counts each all-reduce's operand under the
+    mesh axis of its group and its elements (``"all-reduce:<axis>:<n>"``,
+    for the sizes ``n`` given; any other under ``"...:other"``), and the
+    elements of all of them (``"all-reduce:elements"``)."""
+
+    def __init__(self, groups, sizes):
+        self.groups, self.sizes = groups, sizes  # {group name: axis}, [n]
+        super().__init__()
+
+    def start(self, args):
+        super().start(args)
+        self.c.update({f"all-reduce:{a}:{n}": 0 for a in set(self.groups.values())
+                       for n in [*self.sizes, "other"]})
+        self.c["all-reduce:elements"] = 0
+
+    def _local_op(self, func, args, kwargs):
+        if dryrun.collective_kind(func) == "all-reduce":
+            n = dryrun._local(args[0]).numel()
+            self.c[f"all-reduce:{self.groups[args[2]]}:{n if n in self.sizes else 'other'}"] += 1
+            self.c["all-reduce:elements"] += n
+        return super()._local_op(func, args, kwargs)
+
+
+def test_column_parallel_input_gradients_all_reduced_as_the_reference_lowers_them(oracle):
+    """The uneven-heads train cell, lowered by the reference on ``Auto``
+    mesh axes (where its sharding constraints act).  Its backward
+    all-reduces each column-parallel product's input gradient as an
+    operand of its own: q's, k's and v's (their dots contract over each
+    chip's 320, 64 and 64 columns) in one combined all-reduce, gate's and
+    up's (1,024 each) in another, not one sum where the residual fans
+    out; ``common.summed_grad`` sits at each product's input so.  Over the
+    step (each operand counted as often as the loops around it run), the
+    port's model-axis all-reduces are the reference's operand for operand
+    (the residual's (4, 256, 1280) microbatch block 68 times: in each
+    layer and microbatch ``wo`` 's and ``w_down`` 's forward sums, the
+    remat's ``wo`` sum again and the five input gradients, and
+    ``lm_head`` 's input gradient in each microbatch; four of
+    (4, 256, 1), nine scalars) but for the cross-entropy's logsumexp over
+    the model-sharded vocab: the reference all-reduces its max and its sum,
+    (4, 256) each per microbatch, where the port gathers the float32
+    logits' blocks.  All axes together the port's all-reduce elements are
+    0.66 of the reference's: on the data axis the reference all-reduces
+    the weights' float32 gradients, which the port reduce-scatters onto
+    their FSDP blocks."""
+    ref = oracle[WO_CELL + ("auto",)]
+    cfg, b, s = _size(WO_CELL)
+    data, model = WO_CELL[2]
+    q, kv, f = cfg.n_heads * cfg.hd // model, cfg.n_kv_heads * cfg.hd // model, cfg.d_ff // model
+    grads = sorted(sorted(w) for axes, back, w in ref["dot_all_reduces"] if axes == "model" and back and len(w) > 1)
+    assert grads == [sorted([q, kv, kv]), [f, f]]
+    want = {int(n): c for n, c in ref["all_reduce_operands"]["model"].items()}
+    mesh = make_mesh(WO_CELL[2], ("data", "model"), device="meta")
+    with pytest.MonkeyPatch.context() as mp, fake_device_mesh(mesh) as dm:
+        _short(mp, s)
+        counter = _AllReducesByAxis({dm.get_group(i).group_name: a for i, a in enumerate(dm.mesh_dim_names)},
+                                    list(want))
+        counts, _ = dryrun.count_step(counter, *dryrun.cell_step(cfg, SHAPE_OF["train"], mesh, dm,
+                                                                 batch_override=b))
+    port = {n: counts[f"all-reduce:model:{n}"] for n in want if counts[f"all-reduce:model:{n}"]}
+    assert counts["all-reduce:model:other"] == 0
+    microbatches = b // (data * 4)
+    rows = b // microbatches // data
+    assert port[rows * s * cfg.d_model] == (3 + 5) * cfg.n_layers * microbatches + microbatches
+    logsumexp = collections.Counter({rows * s: 2 * microbatches})
+    assert collections.Counter(port) + logsumexp == collections.Counter(want)
+    ref_elements = sum(int(n) * c for by in ref["all_reduce_operands"].values() for n, c in by.items())
+    assert round(counts["all-reduce:elements"] / ref_elements, 2) == 0.66, counts["all-reduce:elements"] / ref_elements
+
+
 @pytest.mark.parametrize("mode", ["train", "prefill", "decode"])
 @pytest.mark.parametrize("arch", ["qwen3-14b", "mixtral-8x7b", "recurrentgemma-9b"])
 def test_counts_extended_over_depth_equal_the_whole_step(arch, mode):
@@ -600,10 +805,11 @@ def test_to_dtensor_holds_rank_zeros_block():
 
 def test_dtensor_forms_are_the_identity_on_plain_tensors():
     x = torch.randn(4, 6, 8)
-    for f in (common.constrain_batch, common.summed, common.gathered, common.fsdp_gathered):
+    for f in (common.constrain_batch, common.summed, common.summed_grad, common.gathered, common.fsdp_gathered):
         assert f(x) is x
     assert common.whole_grad(x, 1) is x
     w = torch.randn(8, 5)
+    assert common.row_block(x, w) is x
     assert torch.equal(common.mm(x, w), x @ w)
     assert torch.equal(common.split_last(x, 2, 4), x.reshape(4, 6, 2, 4))
     t = torch.randn(3 * optimizer.CHUNK // 2 + 5)
@@ -630,6 +836,16 @@ def test_constrain_batch_and_summed_on_dtensors():
                                    run_check=False, shape=(16, 20), stride=(20, 1))
         assert common.split_last(heads, 5, 4).placements == (Replicate(), Replicate())
         assert common.split_last(heads, 10, 2).placements == (Replicate(), Shard(1))
+        merged = DTensor.from_local(torch.empty(4, 8, 20, device="meta"), dm, [Shard(0), Replicate()],
+                                    run_check=False, shape=(16, 8, 20), stride=(160, 20, 1))
+        wo = DTensor.from_local(torch.empty(10, 3, device="meta"), dm, [Shard(1), Shard(0)],
+                                run_check=False, shape=(20, 12), stride=(12, 1))
+        block = common.row_block(merged, wo)  # wo's rows on model: a slice; its data shard left to mm
+        assert block.placements == (Shard(0), Shard(2)) and block.to_local().shape == (4, 8, 10)
+        assert common.row_block(block, wo) is block
+        w_in = DTensor.from_local(torch.empty(5, 6, device="meta"), dm, [Shard(0), Shard(1)],
+                                  run_check=False, shape=(20, 12), stride=(12, 1))
+        assert common.row_block(merged, w_in) is merged  # rows sharded on data only
 
 
 def test_gathered_replicates_the_axes_of_a_dim():

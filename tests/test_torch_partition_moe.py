@@ -90,15 +90,17 @@ def test_moe_sharded_temporaries_on_meta_equal_real_cpu_tensors(arch, mode, mesh
 @pytest.mark.parametrize("mode", MODES)
 def test_moe_steps_make_no_more_strided_shardings_than_qwen3(mode, mesh):
     """On the (1, 2) mesh (no data axis to pin to) qwen3's step makes
-    strided shardings in attention's head products (216 in train, 12 in
-    prefill, 2 in decode on torch 2.13), which torch 2.11 plans; the MoE
-    steps make no more.  The decode cache of mixtral's sliding window and
+    strided shardings in attention's head products (240 in train, 12 in
+    prefill, 2 in decode on torch 2.13; in train 24 of them in the
+    backward's head products once q, k and v's input gradients are
+    completed at their products, ``common.summed_grad``), which torch 2.11
+    plans; the MoE steps make no more.  The decode cache of mixtral's sliding window and
     Scout's chunks is 16 slots at SMOKE width, as wide as a head, so the
     cache shards its head dim over the model axis; its attention output
     was merged across that shard (4 + 2 more) until ``_merge_heads``
     gathered it."""
     qwen = _strided_outputs("qwen3-14b", mode, mesh)
-    assert qwen == {(1, 2): {"train": 216, "prefill": 12, "decode": 2}}.get(mesh, {}).get(mode, 0)
+    assert qwen == {(1, 2): {"train": 240, "prefill": 12, "decode": 2}}.get(mesh, {}).get(mode, 0)
     for arch in MOE_ARCHS:
         assert _strided_outputs(arch, mode, mesh) <= qwen, arch
 
@@ -142,9 +144,9 @@ def test_moe_block_collectives_by_hand(mesh, shared):
     of the up products' input sums over F again, all-reduced where the
     dispatch's gather meets it (320 B); every weight gradient keeps its
     weight's shard.  With the shared expert its down product all-reduces
-    the (B·S, D) output once more (2·8·8·2 = 256 B); its input's
-    gradient, partial sums over F, joins the tokens' gradient as partial
-    sums (nothing in the block completes it).
+    the (B·S, D) output once more (2·8·8·2 = 256 B), and each of its two
+    up products' input gradient, partial sums over F, is all-reduced
+    where it is made (``common.summed_grad``, 2 x 256 B).
 
     (2, 1), FSDP: the tokens and each weight's D are sharded over the
     data axis.  Forward: the router's (4, 2) float32 block is gathered
@@ -160,7 +162,7 @@ def test_moe_block_collectives_by_hand(mesh, shared):
     the gathered router autograd saved."""
     want = {
         ((1, 2), False): {"all-reduce": (2, 2 * 320)},
-        ((1, 2), True): {"all-reduce": (3, 2 * 320 + 256)},
+        ((1, 2), True): {"all-reduce": (5, 2 * 320 + 3 * 256)},
         ((2, 1), False): {"all-gather": (4, 32 + 3 * 128), "all-reduce": (4, 4 + 4 + 8 + 4),
                           "reduce-scatter": (4, 64 + 3 * 256)},
     }[(mesh, shared)]

@@ -5,7 +5,9 @@ DTensors over a fake process group, whose collectives move nothing; here
 the same step runs on four real gloo ranks of this CPU
 (``torch.multiprocessing.spawn``, a ``file://`` rendezvous under the test's
 own ``tmp_path``), for qwen3-14b's SMOKE config on the (2, 2), (4, 1) and
-(1, 4) meshes: its params drawn from a seed, placed with
+(1, 4) meshes, and with 6 query heads over 2 KV heads on (1, 4), whose
+model axis divides neither (``wo`` 's 96 rows it does): its params drawn
+from a seed, placed with
 ``distribute_tensor`` by the dry run's own shardings, its batch drawn with
 numpy.  Each output, gathered whole, is held to the same step on plain
 tensors with the same microbatch count: the prefill step's last-position
@@ -15,7 +17,7 @@ step from zeros makes each ``m`` (1 - b1) times the clipped gradient, so
 bound is twice the plain step's own gap between bf16 and float32 params
 (the same draws, the config's ``param_dtype`` float32), as the gradient
 bounds of ``tests/test_torch_trainstep.py`` are twice a measured gap.
-All six cells run in one spawn of four ranks (~35 s of the file's ~45).
+All eight cells run in one spawn of four ranks (~45 s of the file's ~55).
 """
 import contextlib
 
@@ -39,6 +41,13 @@ from repro_torch.train.trainstep import init_train_state
 ARCH = "qwen3-14b"
 MESHES = ((2, 2), (4, 1), (1, 4))
 MODES = ("prefill", "train")
+#: qwen3's SMOKE config with heads the model axis does not divide: 6 query
+#: heads over 2 KV heads on (1, 4), so that ``wo`` runs on its row shard
+#: (``common.row_block``) where the heads do not split
+UNEVEN = {"n_heads": 6, "n_kv_heads": 2}
+UNEVEN_MESH = (1, 4)
+#: every cell: (mesh, mode) at the SMOKE config, (mesh, mode, "uneven") with UNEVEN
+CELLS = [(m, mode) for m in MESHES for mode in MODES] + [(UNEVEN_MESH, mode, "uneven") for mode in MODES]
 SHAPE_OF = {"train": "train_4k", "prefill": "prefill_32k"}
 B, S = 16, 64
 WORLD = 4
@@ -56,11 +65,11 @@ def _short():
         SHAPES.update(saved)
 
 
-def _cell(mode, mesh_shape, param_dtype=torch.bfloat16, grad_accum=None):
+def _cell(mode, mesh_shape, param_dtype=torch.bfloat16, grad_accum=None, uneven=False):
     """The cell's step as the dry run builds it (its microbatch count
     too, unless ``grad_accum`` is given), its real arguments on the CPU
-    and their shardings."""
-    cfg = get_config(ARCH, smoke=True).scaled(param_dtype=param_dtype)
+    and their shardings (with ``uneven``, at the UNEVEN heads)."""
+    cfg = get_config(ARCH, smoke=True).scaled(param_dtype=param_dtype, **(UNEVEN if uneven else {}))
     mesh = make_mesh(mesh_shape, ("data", "model"), device="meta")
     rules = default_rules(mesh, expert_sharding=cfg.expert_sharding)
     with _short():
@@ -91,20 +100,22 @@ def _outputs(mode, out):
 
 
 def _worker(rank, init_file, out_dir):
-    """One gloo rank: every (mesh, mode) cell's step on DTensors; rank 0
-    saves the gathered outputs."""
+    """One gloo rank: every cell's step on DTensors; rank 0 saves the
+    gathered outputs."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=WORLD)
     try:
-        results = {}
-        for mesh_shape in MESHES:
-            dm = init_device_mesh("cpu", mesh_shape, mesh_dim_names=("data", "model"))
-            for mode in MODES:
-                step, args, shardings, _ = _cell(mode, mesh_shape)
-                args = _map(lambda sh, x: distribute_tensor(x, dm, placements(sh, dm.mesh_dim_names)),
-                            shardings, lambda s: isinstance(s, NamedSharding), args)
-                with torch.no_grad(), implicit_replication():
-                    results[(mesh_shape, mode)] = _outputs(mode, step(*args))
+        results, meshes = {}, {}
+        for cell in CELLS:
+            mesh_shape, mode = cell[:2]
+            if mesh_shape not in meshes:
+                meshes[mesh_shape] = init_device_mesh("cpu", mesh_shape, mesh_dim_names=("data", "model"))
+            dm = meshes[mesh_shape]
+            step, args, shardings, _ = _cell(mode, mesh_shape, uneven=len(cell) > 2)
+            args = _map(lambda sh, x: distribute_tensor(x, dm, placements(sh, dm.mesh_dim_names)),
+                        shardings, lambda s: isinstance(s, NamedSharding), args)
+            with torch.no_grad(), implicit_replication():
+                results[cell] = _outputs(mode, step(*args))
         if rank == 0:
             torch.save(results, f"{out_dir}/partitioned.pt")
     finally:
@@ -120,19 +131,19 @@ def partitioned(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def plain():
-    """The plain step's outputs in bf16 and float32 for each (mesh, mode),
-    with the mesh's microbatch count (one run for each count)."""
+    """The plain step's outputs in bf16 and float32 for each cell, with
+    the mesh's microbatch count (one run for each count and config)."""
     runs, out = {}, {}
-    for mesh_shape in MESHES:
-        for mode in MODES:
-            ga = _cell(mode, mesh_shape)[3]
-            if (mode, ga) not in runs:
-                runs[(mode, ga)] = []
-                for dt in (torch.bfloat16, torch.float32):
-                    step, args, _, _ = _cell(mode, (1, 1), dt, ga)
-                    with torch.no_grad():
-                        runs[(mode, ga)].append(_outputs(mode, step(*args)))
-            out[(mesh_shape, mode)] = runs[(mode, ga)]
+    for cell in CELLS:
+        mesh_shape, mode, uneven = *cell[:2], len(cell) > 2
+        ga = _cell(mode, mesh_shape, uneven=uneven)[3]
+        if (mode, ga, uneven) not in runs:
+            runs[(mode, ga, uneven)] = []
+            for dt in (torch.bfloat16, torch.float32):
+                step, args, _, _ = _cell(mode, (1, 1), dt, ga, uneven)
+                with torch.no_grad():
+                    runs[(mode, ga, uneven)].append(_outputs(mode, step(*args)))
+        out[cell] = runs[(mode, ga, uneven)]
     return out
 
 
@@ -150,8 +161,19 @@ def test_partitioned_step_matches_plain_step(partitioned, plain, mesh, mode):
     the worst output's gap (the first moments', ~1.2e-2; the logits',
     7.9e-3) sets the bound of all, since a scalar's own gap (the loss's,
     1.0e-5 of it) is one sample of the rounding, not its size."""
-    got = partitioned[(mesh, mode)]
-    bf16, f32 = plain[(mesh, mode)]
+    _assert_within_twice_the_gap(partitioned[(mesh, mode)], *plain[(mesh, mode)])
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_uneven_heads_partitioned_step_matches_plain_step(partitioned, plain, mode):
+    """The UNEVEN heads on (1, 4): the partitioned step, with ``wo`` on its
+    row shard and each column-parallel product's input gradient
+    all-reduced where it is made, within the same bound."""
+    cell = (UNEVEN_MESH, mode, "uneven")
+    _assert_within_twice_the_gap(partitioned[cell], *plain[cell])
+
+
+def _assert_within_twice_the_gap(got, bf16, f32):
     assert set(got) == set(bf16) == set(f32)
     gap = _gap(bf16, f32)
     assert 1e-3 < gap < 2e-2, gap
