@@ -2624,10 +2624,13 @@ def train_qwen_phase(smi: str) -> None:
 
 #: 10e's (arch, layers, mesh, global batch, microbatches): 10b's cell
 #: tensor-parallel (2 microbatches of 1, as 10b), data-parallel and both
-#: (2 microbatches of 2, one sequence per data shard in each), and
-#: Mixtral's MoE at full width with 2 layers, tensor- and data-parallel
+#: (2 microbatches of 2, one sequence per data shard in each),
+#: data-parallel in one microbatch of 2 (the embedding's backward on
+#: local blocks, ``common.embed_rows``), and Mixtral's MoE at full width
+#: with 2 layers, tensor- and data-parallel
 TRAIN_SHARDED = (("qwen3-14b", TRAIN_QWEN["n_layers"], (1, 2), 2, 2),
                  ("qwen3-14b", TRAIN_QWEN["n_layers"], (2, 1), 4, 2),
+                 ("qwen3-14b", TRAIN_QWEN["n_layers"], (2, 1), 2, 1),
                  ("qwen3-14b", TRAIN_QWEN["n_layers"], (2, 2), 4, 2),
                  ("mixtral-8x7b", 2, (1, 2), 2, 2),
                  ("mixtral-8x7b", 2, (2, 1), 4, 2))

@@ -91,8 +91,9 @@ NOTES = {
                   "updates make none), and of the temporaries the softmax backward's and logsumexp's "
                   "kernels allocate inside themselves, less the arguments'",
     "collectives": "the collectives DTensor issues on rank 0, by the reference's kinds, each its input's "
-                   "bytes (a local block for an all-gather, the whole operand otherwise); DTensor on a "
-                   "CPU mesh issues an all-to-all as an all-gather of the same input",
+                   "bytes (a local block for an all-gather, the whole operand otherwise; its elements "
+                   "in collective_elements_by_kind), every layer's and microbatch's; DTensor on a CPU "
+                   "mesh issues an all-to-all as an all-gather of the same input",
 }
 
 
@@ -239,8 +240,8 @@ class _Live:
 
 
 #: the counts a run adds up (``StepCount.counts``)
-COUNTS = ("flops", "bytes_accessed", "temp_bytes",
-          *(f"{k}_bytes" for k in COLLECTIVE_KINDS), *(f"{k}_count" for k in COLLECTIVE_KINDS))
+COUNTS = ("flops", "bytes_accessed", "temp_bytes", *(f"{k}_bytes" for k in COLLECTIVE_KINDS),
+          *(f"{k}_elements" for k in COLLECTIVE_KINDS), *(f"{k}_count" for k in COLLECTIVE_KINDS))
 
 
 class StepCount(TorchDispatchMode):
@@ -467,6 +468,7 @@ class StepCount(TorchDispatchMode):
         kind = collective_kind(func)
         if kind is not None:
             self.c[f"{kind}_bytes"] += _nbytes(args[0])
+            self.c[f"{kind}_elements"] += _local(args[0]).numel()
             self.c[f"{kind}_count"] += 1
         return out
 
@@ -715,6 +717,7 @@ def plan_cell(cfg: ModelConfig, shape: str, mesh: Mesh, *, batch_override: Optio
             "argument_bytes_by_part": by_part,
         },
         "collectives": collectives(counts),
+        "collective_elements_by_kind": {k: counts[f"{k}_elements"] for k in COLLECTIVE_KINDS},
         "notes": NOTES,
         "scan_info": {
             "mode": spec.mode,

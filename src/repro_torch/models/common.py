@@ -30,7 +30,7 @@ from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 __all__ = [
     "ModelConfig",
@@ -52,6 +52,7 @@ __all__ = [
     "mm",
     "einsum",
     "even_heads",
+    "embed_rows",
     "sigmoid",
     "silu",
     "gelu_tanh",
@@ -334,21 +335,16 @@ def local_block(x: DTensor, dim: int, *others: DTensor):
     return block, first * block.shape[d], [o.redistribute(mesh, whole).to_local() for o in others]
 
 
-def gathered(x: torch.Tensor, dim: Optional[int] = None, keep_last_axis: bool = False) -> torch.Tensor:
+def gathered(x: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:
     """A DTensor redistributed to ``Replicate`` on the mesh axes that shard
     ``dim`` (every axis when ``dim`` is None), for an op DTensor cannot run
     on a sharded ``dim``: an in-place scatter at a sharded index, an argmax
-    over a sharded vocabulary.  With ``keep_last_axis`` the last of those
-    axes keeps its shard: torch 2.11's DTensor has no gather strategy for
-    an index whose dim is sharded over several axes (the token ids of a
-    batch split over ``("pod", "data")``).  The identity on a plain tensor
-    and where nothing is gathered."""
+    over a sharded vocabulary, the embedding's lookup of every id.  The
+    identity on a plain tensor and where nothing is gathered."""
     if not isinstance(x, DTensor):
         return x
-    pl = list(x.placements)
-    axes = [i for i, p in enumerate(pl) if (not p.is_replicate() if dim is None else p.is_shard(dim % x.ndim))]
-    for i in axes[:-1] if keep_last_axis else axes:
-        pl[i] = Replicate()
+    pl = [Replicate() if (not p.is_replicate() if dim is None else p.is_shard(dim % x.ndim)) else p
+          for p in x.placements]
     return x if pl == list(x.placements) else x.redistribute(x.device_mesh, pl)
 
 
@@ -384,6 +380,59 @@ def row_block(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     pl = [Shard(x.ndim - 1) if q.is_shard(0) and p.is_replicate() and names[i] not in FSDP_AXES else p
           for i, (p, q) in enumerate(zip(x.placements, w.placements))]
     return x if pl == list(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``: the embedding's rows at the token ids, its
+    gradient added into zeros like ``table`` at the ids, as autograd's own
+    backward of the index.  On DTensors both run on local blocks
+    (:class:`_EmbedRows`): the ids are gathered whole once, each chip
+    looks them up in its block of the table (its columns of ``D`` on the
+    FSDP axes, its rows of the vocabulary on the model axis, the rows
+    outside it zeros: partial sums over that axis, completed there,
+    :func:`summed`, as the reference's partitioner all-reduces its masked
+    lookup), and its backward adds the gradient, its columns split as the
+    table's, into that block.  Torch 2.11's DTensor plans no backward of
+    the index with one microbatch on a data axis (``index_put`` on a
+    sharded column).  The identity, ``table[tokens]``, on plain
+    tensors."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    return summed(_EmbedRows.apply(table, tokens))
+
+
+class _EmbedRows(torch.autograd.Function):
+    """:func:`embed_rows` on a DTensor table: out of each chip's block, the
+    rows ``(*tokens.shape, D)`` laid out on each mesh axis as the table's
+    columns are (``Shard`` on the last dim where the table's ``D`` is
+    sharded), ``Partial`` where its vocabulary is, replicated elsewhere."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        block, first, _ = local_block(table, 0)
+        ids = gathered(tokens).to_local() if isinstance(tokens, DTensor) else tokens
+        mine = None
+        if block.shape[0] != table.shape[0]:  # the vocabulary is sharded
+            ids = ids - first
+            mine = ((ids >= 0) & (ids < block.shape[0]))[..., None]
+            ids = ids.clamp(0, block.shape[0] - 1)
+        ctx.save_for_backward(ids, mine)
+        ctx.table = (table.device_mesh, table.placements, table.shape, table.stride(), block.shape)
+        rows = block[ids] if mine is None else torch.where(mine, block[ids], 0)
+        pl = [Shard(rows.ndim - 1) if p.is_shard(1) else Partial() if p.is_shard(0) else Replicate()
+              for p in table.placements]
+        return DTensor.from_local(rows, table.device_mesh, pl, run_check=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ids, mine = ctx.saved_tensors
+        mesh, placements, shape, stride, block_shape = ctx.table
+        g = grad.redistribute(mesh, [Shard(grad.ndim - 1) if p.is_shard(1) else Replicate()
+                                     for p in placements]).to_local()
+        if mine is not None:
+            g = torch.where(mine, g, 0)
+        block = g.new_zeros(block_shape).index_put_((ids,), g, accumulate=True)
+        return DTensor.from_local(block, mesh, placements, run_check=False, shape=shape, stride=stride), None
 
 
 def split_last(x: torch.Tensor, n: int, size: int) -> torch.Tensor:

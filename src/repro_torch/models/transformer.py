@@ -40,9 +40,9 @@ from .attention import NEG_INF, attention, decode_attention, init_attention, ini
 from .common import (
     ModelConfig,
     constrain_batch,
+    embed_rows,
     init_dense,
     init_zeros,
-    gathered,
     local_block,
     mm,
     param_device,
@@ -264,7 +264,7 @@ def _run_stack(stacked, cfg: ModelConfig, kinds, x, positions, *, causal=True,
 
 def _embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     tokens = batch["tokens"]
-    x = constrain_batch(params["embed"][gathered(tokens, 0, keep_last_axis=True)].to(cfg.param_dtype))
+    x = constrain_batch(embed_rows(params["embed"], tokens).to(cfg.param_dtype))
     if cfg.n_patches > 0 and "patch_embeds" in batch:
         pe = mm(batch["patch_embeds"].to(cfg.param_dtype), params["patch_proj"])
         n_p = pe.shape[1]
@@ -289,7 +289,7 @@ def forward_train(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                               causal=False, use_rope=False)
         enc_out = rmsnorm(enc_x, params["enc_norm"], cfg.norm_eps)
         dec_pos = sinusoidal_rows(torch.arange(S, device=dev), cfg.d_model).to(cfg.param_dtype)
-        x = params["embed"][gathered(tokens, 0, keep_last_axis=True)].to(cfg.param_dtype) + dec_pos
+        x = embed_rows(params["embed"], tokens).to(cfg.param_dtype) + dec_pos
         x, stats = _run_stack(params["dec_blocks"], cfg, ("a",), x, positions,
                               causal=True, use_rope=False, enc_out=enc_out)
     else:
@@ -476,7 +476,11 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, state: DecodeStat
     before decoding from it if it is needed again)."""
     cross = cfg.kind == "encdec"
     kinds = ("a",) if cross else cfg.block_pattern
-    x = params["embed"][gathered(token, 0, keep_last_axis=True)].to(cfg.param_dtype)
+    # pinned to the batch axes as the reference's partitioner moves the
+    # lookup's columns to the batch rows (an all-to-all) before the first
+    # block: left on its columns, every product of the step would be split
+    # over the contraction and all-reduced over the data axis
+    x = constrain_batch(embed_rows(params["embed"], token).to(cfg.param_dtype))
     if cross:
         cap = state.caches["a0"]["kv"].k.shape[2]  # (n_layers, B, T, K, hd)
         row = torch.clamp(state.position, max=cap)  # the reference's table has cap + 1 rows

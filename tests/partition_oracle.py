@@ -11,25 +11,32 @@ partitioned dry run is held against these numbers
 (``tests/test_torch_partition.py``); run alone:
 
     PYTHONPATH=src python tests/partition_oracle.py \\
-        '[["qwen3-14b", "prefill", [4, 2], 16, 64]]'
+        '[["qwen3-14b", "prefill", [4, 2], 16, 64, {}, "auto"]]'
 
 each cell ``[arch, mode, [data, model], batch, seq]`` (decode: ``seq``
 is the cache's context), or with a sixth entry, a dict of
 ``ModelConfig.scaled`` overrides of that cell's SMOKE config, and a
 seventh, ``"auto"``, for a mesh whose axes are ``AxisType.Auto`` (see
 below).  Each line also holds ``collectives_by_dtype``: the same bytes
-split by the dtype of each collective's result shapes;
-``flops_per_chip``: the compiled program's ``cost_analysis()`` FLOPs (a
-scan's body counted once); and ``wo_dots``: the result and operand shapes
-of each forward dot that the reference's ``... @ p["wo"]`` lowers to
-(found by the HLO's stack frames; a backward dot's innermost frame is
-its remat's checkpoint); ``all_reduce_operands``: the all-reduces'
-operands over one step, ``{axes: {elements: count}}``, each counted as
-often as the loops around it run (``loop_trips``; the byte totals above
-count a loop's body once) and keyed by the mesh axes its replica group
-spans (``"model"``, ``"data"``, ``"model[2]"`` for a group of 2 chips of
-the model axis); and ``dot_all_reduces``: for each all-reduce whose
-operands all come from dots, ``[axes, backward, widths]``, the width each
+split by the dtype of each collective's result shapes, and ``elements``:
+those bytes over each dtype's size, by kind (the host lowering carries
+float32 and int32 where the port's traffic is bf16, so the two are
+compared in elements); ``collectives_per_trip``,
+``collectives_by_dtype_per_trip`` and ``elements_per_trip``: the same
+three with each collective counted as often as the ``while`` loops around
+it run (``loop_trips``: the microbatch and layer scans; the keys above
+count a loop's body once, as ``parse_collectives`` does, which also
+skips a collective whose result is a tuple of six or more shapes; these
+count it); ``flops_per_chip``: the compiled program's ``cost_analysis()``
+FLOPs (a scan's body counted once); and ``wo_dots``: the result and
+operand shapes of each forward dot that the reference's ``... @ p["wo"]``
+lowers to (found by the HLO's stack frames; a backward dot's innermost
+frame is its remat's checkpoint); ``all_reduce_operands``: the
+all-reduces' operands over one step, ``{axes: {elements: count}}``, each
+counted per loop trip and keyed by the mesh axes its replica group spans
+(``"model"``, ``"data"``, ``"model[2]"`` for a group of 2 chips of the
+model axis); and ``dot_all_reduces``: for each all-reduce whose operands
+all come from dots, ``[axes, backward, widths]``, the width each
 operand's dot contracts over (a backward all-reduce's ``op_name`` is a
 ``transpose``).
 
@@ -40,12 +47,17 @@ replicated, every weight gathered, and each chip computes the whole
 step, so the lowering shows no tensor-parallel product.  An ``"auto"``
 cell lowers the same step on ``Auto`` axes, where the constraints act and
 GSPMD partitions each product as the reference's sharding was written
-for.  With ``--port`` each line also holds the
-port's ``plan_cell`` of the same cell (the step on DTensors over the same
-mesh on a fake process group) and the ratio of the two collective totals.
+for: the tests hold the port to that lowering, counted per trip.  With
+``--port`` each line also holds the port's ``plan_cell`` of the same cell
+(the step on DTensors over the same mesh on a fake process group), the
+ratio of the two collective totals in bytes (``ratio``: the reference's
+once per loop body, as PERF.md's history quotes it) and in elements
+(``ratio_elements``: the reference's per trip).
 ``--scaled '{"d_model": 1024, "head_dim": 256, "d_ff": 4096}'`` widens
 both packages' SMOKE configs by ``ModelConfig.scaled`` for every cell
-without overrides of its own.
+without overrides of its own.  ``--scan-psum N`` prints, instead of any
+cell, :func:`scan_psum` 's counts of a scan of ``N`` trips with one and
+with six arrays all-reduced in its body.
 """
 import json
 import os
@@ -164,6 +176,43 @@ def loop_trips(hlo_text: str) -> dict:
     return {c: (times(c), lines) for c, lines in comps.items()}
 
 
+def _elements(by_dtype: dict) -> dict:
+    """``{kind: elements}`` of ``{kind: {dtype: bytes}}``: each dtype's
+    bytes over its size."""
+    return {k: sum(b / _DTYPE_BYTES[d] for d, b in by.items()) for k, by in by_dtype.items()}
+
+
+#: the ``/*index=5*/`` marks in a tuple of six or more shapes, which
+#: ``parse_collectives`` ' pattern does not pass: it skips such a collective
+_COMMENT = re.compile(r"/\*.*?\*/")
+
+
+def per_trip(hlo_text: str) -> dict:
+    """The collectives over one step, each counted as often as the loops
+    around it run (:func:`loop_trips`), where ``parse_collectives`` counts
+    a loop's body once, and each whose result is a tuple of six or more
+    shapes counted too: ``collectives_per_trip`` (``parse_collectives`` '
+    keys), ``collectives_by_dtype_per_trip`` (:func:`collectives_by_dtype`
+    's) and ``elements_per_trip`` (``{kind: elements}``)."""
+    coll = {"bytes_by_kind": {}, "counts": {}, "total_per_chip_bytes": 0.0}
+    by_dtype: dict = {}
+    for times, lines in loop_trips(hlo_text).values():
+        if not times:
+            continue
+        body = _COMMENT.sub("", "\n".join(lines))
+        one = parse_collectives(body)
+        for kind, b in one["bytes_by_kind"].items():
+            coll["bytes_by_kind"][kind] = coll["bytes_by_kind"].get(kind, 0.0) + times * b
+            coll["counts"][kind] = coll["counts"].get(kind, 0) + times * one["counts"][kind]
+        for kind, by in collectives_by_dtype(body).items():
+            for dt, b in by.items():
+                by_dtype.setdefault(kind, {})
+                by_dtype[kind][dt] = by_dtype[kind].get(dt, 0.0) + times * b
+    coll["total_per_chip_bytes"] = sum(coll["bytes_by_kind"].values())
+    return {"collectives_per_trip": coll, "collectives_by_dtype_per_trip": by_dtype,
+            "elements_per_trip": _elements(by_dtype)}
+
+
 def _group_axes(rhs: str, mesh_shape) -> str:
     """The mesh axes that a collective's first replica group spans, with
     the group's size in brackets where it is only part of them."""
@@ -219,6 +268,24 @@ def all_reduces(hlo_text: str, mesh_shape):
     return operands, dots
 
 
+def scan_psum(n: int, parts: int = 1, width: int = 96) -> dict:
+    """A ``jax.lax.scan`` of ``n`` trips whose body all-reduces its carry,
+    ``parts`` (``width``,) float32 arrays, over the 8 devices (a ``psum``
+    under ``shard_map``, which XLA issues as one all-reduce of a tuple),
+    compiled: its ``collectives`` (the body once) and :func:`per_trip` 's
+    keys, for a check of the trip counting."""
+    mesh = jax.make_mesh((8,), ("model",), axis_types=(AxisType.Auto,))
+
+    def body(c, _):
+        return tuple(a + b for a, b in zip(c, jax.lax.psum(tuple(jnp.sin(a) for a in c), "model"))), None
+
+    f = jax.shard_map(lambda *x: jax.lax.scan(body, x, None, length=n)[0], mesh=mesh,
+                      in_specs=PartitionSpec("model"), out_specs=PartitionSpec("model"))
+    arg = jax.ShapeDtypeStruct((8 * width,), jnp.float32)
+    text = jax.jit(f).lower(*[arg] * parts).compile().as_text()
+    return {"collectives": parse_collectives(text), **per_trip(text)}
+
+
 def lower(arch: str, mode: str, mesh_shape, B: int, S: int, scaled=None, axes=None) -> dict:
     cfg = get_config(arch, smoke=True).scaled(**(SCALED if scaled is None else scaled))
     mesh = jax.make_mesh(tuple(mesh_shape), ("data", "model"),
@@ -261,9 +328,11 @@ def lower(arch: str, mode: str, mesh_shape, B: int, S: int, scaled=None, axes=No
         compiled = lowered.compile()
     text = compiled.as_text()
     operands, dots = all_reduces(text, mesh_shape)
+    by_dtype = collectives_by_dtype(text)
     return {"arch": arch, "mode": mode, "mesh": list(mesh_shape), "batch": B, "seq": S,
             "scaled": SCALED if scaled is None else scaled, "axes": axes or "explicit",
-            "collectives": parse_collectives(text), "collectives_by_dtype": collectives_by_dtype(text),
+            "collectives": parse_collectives(text), "collectives_by_dtype": by_dtype,
+            "elements": _elements(by_dtype), **per_trip(text),
             "temp_bytes": compiled.memory_analysis().temp_size_in_bytes,
             "flops_per_chip": compiled.cost_analysis()["flops"], "wo_dots": wo_dots(text),
             "all_reduce_operands": operands, "dot_all_reduces": dots}
@@ -288,6 +357,10 @@ def plan(arch: str, mode: str, mesh_shape, B: int, S: int, scaled=None, axes=Non
 
 
 if __name__ == "__main__":
+    if "--scan-psum" in sys.argv:
+        i = sys.argv.index("--scan-psum")
+        print(json.dumps([scan_psum(int(sys.argv[i + 1]), parts) for parts in (1, 6)]))
+        sys.exit()
     if "--scaled" in sys.argv:
         SCALED.update(json.loads(sys.argv[sys.argv.index("--scaled") + 1]))
     for cell in json.loads(sys.argv[1]):
@@ -298,4 +371,7 @@ if __name__ == "__main__":
                            "temp_bytes": port["memory_analysis"]["temp_bytes"]}
             ref_total = row["collectives"]["total_per_chip_bytes"]
             row["ratio"] = port["collectives"]["total_per_chip_bytes"] / ref_total if ref_total else None
+            ref_elements = sum(row["elements_per_trip"].values())
+            row["ratio_elements"] = (sum(port["collective_elements_by_kind"].values()) / ref_elements
+                                     if ref_elements else None)
         print(json.dumps(row), flush=True)

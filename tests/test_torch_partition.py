@@ -2,25 +2,32 @@
 run on DTensors over a mesh on a fake process group, and what rank 0's
 local ops and collectives add up to.
 
-* against the reference's GSPMD lowering of the same SMOKE cells
+* against the reference's GSPMD lowering of the same SMOKE cells on
+  ``Auto`` mesh axes, where its sharding constraints act
   (``tests/partition_oracle.py`` in a subprocess on 8 fake host devices,
-  batch 16 x 64 tokens; qwen3-14b and mamba2-780m, prefill and train): no
-  collective on a (1, 1) mesh in either package, and the port's collective
-  bytes per chip within 2x of the reference's on the (8, 1) and (4, 2)
-  meshes and, for qwen3-14b, on (2, 4), whose model axis does not divide
-  the KV heads, and for qwen3-14b widened to d_model 1024 at 32 x 256
-  (prefill and train on (8, 1) and (4, 2), decode on (8, 1)), and at
-  d_model 1280 with 10 heads on (2, 4), whose model axis divides ``wo`` 's
-  rows but not the heads; on that train cell ``wo`` runs on its row shard
-  as the reference lowers it on ``Auto`` mesh axes, its FLOPs per chip a
-  quarter of the gathered form's, and the port's model-axis all-reduces
-  are that lowering's operand for operand (one per column-parallel
-  product's input gradient) but the loss's logsumexp; on (1, 8)
-  (no data axis) the ratio is pinned with the op that makes it; on (8, 1)
-  the port's collectives are the ZeRO-3 traffic of the param tree counted
-  by hand, and where that is under half the reference's bytes (whose host
-  lowering is all float32) the ratio of elements is pinned; the reference
-  lowers no MoE cell (mixtral-8x7b), which the port plans;
+  batch 16 x 64 tokens; qwen3-14b and mamba2-780m, prefill and train):
+  no collective on a (1, 1) mesh in either package; the port's
+  collectives over the step within 0.5-2x of the reference's, in
+  elements, the reference's counted per loop trip (its host lowering is
+  float32 where the port's traffic is bf16, and it scans microbatches and
+  layers), on the (8, 1) and (4, 2) meshes and, for qwen3-14b, on (2, 4)
+  and (1, 8), whose model axis does not divide the KV heads, and for
+  qwen3-14b widened to d_model 1024 at 32 x 256 (prefill and train on
+  (8, 1) and (4, 2), decode on (8, 1) and (4, 2)) and at d_model 1280
+  with 10 heads on (2, 4), whose model axis divides ``wo`` 's rows but
+  not the heads; on every cell with a model axis, the port's all-reduces
+  over it operand for operand the reference's but for the differences
+  ``model_axis_differences`` names (the logsumexp, the qk-norm gammas'
+  grouping, the embedding's gradient and lookup, decode's scores, the
+  SSD); on the u1280 train cell ``wo`` runs on its row shard as the
+  reference lowers it (on the default ``Explicit`` axes, lowered for
+  this cell only, every product runs whole), its FLOPs per chip a
+  quarter of the gathered form's, and one all-reduce per column-parallel
+  product's input gradient, as the reference's; on (8, 1) the port's
+  collectives are the ZeRO-3 traffic of the param tree counted by hand,
+  and their ratio of elements to the reference's is pinned; the oracle's
+  trip counting on a scan of known length; the reference lowers no MoE
+  cell (mixtral-8x7b), which the port plans;
 * exact counts: the collectives and FLOPs of one batch-sharded input
   times one FSDP-sharded weight, forward and backward, worked out by hand,
   as a plain product and through ``common.mm``, which gathers the weight,
@@ -77,17 +84,22 @@ ORACLE_CELLS = [(a, m, mesh) for a in ORACLE_ARCHS for m in ("prefill", "train")
 WIDE = {"d_model": 1024, "head_dim": 256, "d_ff": 4096}
 WIDE_B, WIDE_S = 32, 256
 WIDE_CELLS = [("qwen3-14b", m, mesh, "d1024") for m, mesh in (
-    ("prefill", (8, 1)), ("prefill", (4, 2)), ("train", (4, 2)), ("train", (8, 1)), ("decode", (8, 1)))]
+    ("prefill", (8, 1)), ("prefill", (4, 2)), ("train", (4, 2)), ("train", (8, 1)), ("decode", (8, 1)),
+    ("decode", (4, 2)))]
 #: qwen3-14b's SMOKE config at d_model 1280 with 10 query heads and 2 KV
 #: heads, which a model axis of 4 does not divide while it divides
 #: ``wo`` 's H·hd = 1280 rows, as Qwen3-14B's 40 heads on 16 chips (5,120
 #: rows), at 32 x 256: a cell ``(arch, mode, mesh, "u1280")``
 UNEVEN_WIDE = {"d_model": 1280, "n_heads": 10, "n_kv_heads": 2, "head_dim": 128, "d_ff": 4096}
 UNEVEN_WIDE_CELLS = [("qwen3-14b", m, (2, 4), "u1280") for m in ("prefill", "train")]
-#: the reference's lowering of the uneven train cell on ``AxisType.Auto``
-#: mesh axes (``tests/partition_oracle.py``), whose ``wo`` dot it reads
+#: the uneven train cell, whose ``wo`` dot the tests read
 WO_CELL = ("qwen3-14b", "train", (2, 4), "u1280")
-AUTO_CELLS = [WO_CELL + ("auto",)]
+#: every cell the oracle lowers on ``Auto`` mesh axes, the yardstick
+CELLS = ORACLE_CELLS + WIDE_CELLS + UNEVEN_WIDE_CELLS
+#: the one cell the oracle also lowers on the default ``Explicit`` axes
+#: (a key ``cell + ("explicit",)``): the replicated step, whose ``wo`` dot
+#: runs whole
+EXPLICIT_CELLS = [WO_CELL]
 #: each width's ``ModelConfig.scaled`` overrides, batch and tokens
 WIDTHS = {"d1024": (WIDE, WIDE_B, WIDE_S), "u1280": (UNEVEN_WIDE, WIDE_B, WIDE_S)}
 
@@ -125,38 +137,42 @@ def _plan(arch, mode, mesh_shape, *width, **kw):
         return dryrun.plan_cell(cfg, SHAPE_OF[mode], mesh, batch_override=b, **kw)
 
 
-def _oracle(cells):
-    """The reference's partitioned program of ``cells`` (one subprocess)."""
+def _spec(cell, axes="auto"):
+    """A cell as ``tests/partition_oracle.py`` takes it, on ``axes``."""
+    scaled, b, s = WIDTHS[cell[3]] if len(cell) > 3 else ({}, B, S)
+    return [cell[0], cell[1], list(cell[2]), b, s, scaled, axes]
+
+
+def _oracle_run(args):
+    """``tests/partition_oracle.py`` with ``args``, in a subprocess."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
-
-    def spec(a, m, mesh, width=None, *axes):
-        if width is None:
-            return [a, m, list(mesh), B, S]
-        scaled, b, s = WIDTHS[width]
-        return [a, m, list(mesh), b, s, scaled, *axes]
-
-    cells = [spec(*c) for c in cells]
-    return subprocess.run([sys.executable, str(ROOT / "tests" / "partition_oracle.py"), json.dumps(cells)],
+    return subprocess.run([sys.executable, str(ROOT / "tests" / "partition_oracle.py"), *args],
                           env=env, capture_output=True, text=True, timeout=900)
+
+
+def _oracle(specs):
+    """The reference's partitioned program of ``specs`` (one subprocess)."""
+    return _oracle_run([json.dumps(specs)])
 
 
 @pytest.fixture(scope="module")
 def oracle():
-    """The reference's collectives, temporaries, FLOPs and ``wo`` dots per
-    cell."""
-    out = _oracle(ORACLE_CELLS + WIDE_CELLS + UNEVEN_WIDE_CELLS + AUTO_CELLS)
+    """The reference's collectives (per loop trip too), temporaries, FLOPs,
+    all-reduce operands and ``wo`` dots per cell, on ``Auto`` mesh axes
+    (``EXPLICIT_CELLS`` also on ``Explicit`` ones)."""
+    out = _oracle([_spec(c) for c in CELLS] + [_spec(c, "explicit") for c in EXPLICIT_CELLS])
     assert out.returncode == 0, out.stderr[-4000:]
     rows = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
     width = {json.dumps(v[0], sort_keys=True): k for k, v in WIDTHS.items()}
     return {(r["arch"], r["mode"], tuple(r["mesh"])) + ((width[json.dumps(r["scaled"], sort_keys=True)],)
                                                         if r["scaled"] else ()) +
-            (("auto",) if r["axes"] == "auto" else ()): r for r in rows}
+            (("explicit",) if r["axes"] == "explicit" else ()): r for r in rows}
 
 
 @pytest.fixture(scope="module")
 def plans():
-    return {cell: _plan(*cell) for cell in ORACLE_CELLS + WIDE_CELLS + UNEVEN_WIDE_CELLS}
+    return {cell: _plan(*cell) for cell in CELLS}
 
 
 # ---------------------------------------------------------------------------
@@ -170,47 +186,35 @@ def test_one_chip_has_no_collectives(oracle, plans, arch, mode):
         assert coll["total_per_chip_bytes"] == 0 and not any(coll["counts"].values())
 
 
-#: cells whose collective bytes are pinned by their own test, not held to
-#: 2x: the port / reference ratio of the totals as measured
-PINNED = {("qwen3-14b", "prefill", (1, 8)): 7.19, ("qwen3-14b", "train", (1, 8)): 15.23}
 #: pure data-parallel cells whose collectives are the hand-counted ZeRO-3
-#: traffic (``zero3_bytes``) where the reference all-reduces in float32:
-#: the port / reference ratio of the collectives' elements, as measured
-ZERO3 = {("qwen3-14b", "train", (8, 1)): 0.50, ("mamba2-780m", "train", (8, 1)): 0.59,
-         ("mamba2-780m", "prefill", (8, 1)): 0.96, ("qwen3-14b", "train", (8, 1), "d1024"): 0.68}
-#: the cells held to 2x, with the ids they had before the ZeRO-3 cells left
-_OFF_ONE_CHIP = [c for c in ORACLE_CELLS if c[2] != (1, 1) and c not in PINNED]
-BANDED = [pytest.param(c, id=f"{c[0]}-{c[1]}-mesh{i}") for i, c in enumerate(_OFF_ONE_CHIP) if c not in ZERO3] + \
-    [pytest.param(c, id=f"{c[0]}-{c[1]}-{c[2][0]}x{c[2][1]}-{c[3]}") for c in WIDE_CELLS + UNEVEN_WIDE_CELLS
-     if c not in ZERO3]
+#: traffic (``zero3_bytes``): the port / reference ratio of the
+#: collectives' elements over the step, as measured
+ZERO3 = {("qwen3-14b", "train", (8, 1)): 1.00, ("mamba2-780m", "train", (8, 1)): 1.00,
+         ("mamba2-780m", "prefill", (8, 1)): 1.00, ("qwen3-14b", "train", (8, 1), "d1024"): 1.04}
+#: the cells held to 2x (every cell off one chip), with the ids they had
+#: before the (1, 8) and ZeRO-3 cells joined them
+_OFF_ONE_CHIP = [c for c in ORACLE_CELLS if c[2] not in ((1, 1), (1, 8))]
+BANDED = [pytest.param(c, id=f"{c[0]}-{c[1]}-mesh{i}") for i, c in enumerate(_OFF_ONE_CHIP)] + \
+    [pytest.param(c, id=f"{c[0]}-{c[1]}-1x8") for c in ORACLE_CELLS if c[2] == (1, 8)] + \
+    [pytest.param(c, id=f"{c[0]}-{c[1]}-{c[2][0]}x{c[2][1]}-{c[3]}") for c in WIDE_CELLS + UNEVEN_WIDE_CELLS]
 
 
 @pytest.mark.parametrize("cell", BANDED)
 def test_collective_bytes_within_twice_the_reference(oracle, plans, cell):
-    ref = oracle[cell]["collectives"]
-    port = plans[cell]["collectives"]
-    ratio = port["total_per_chip_bytes"] / ref["total_per_chip_bytes"]
-    assert 0.5 <= ratio <= 2.0, (ratio, port, ref)
-    assert set(port["bytes_by_kind"]) == set(ref["bytes_by_kind"]) == set(dryrun.COLLECTIVE_KINDS)
-    assert port["total_per_chip_bytes"] == sum(port["bytes_by_kind"].values())
-
-
-@pytest.mark.parametrize("cell", list(PINNED))
-def test_tensor_parallel_partial_sums_where_the_reference_gathers_weights(oracle, plans, cell):
-    """With no data axis (8 model chips) the reference's lowering gathers
-    the SMOKE width's small weights and runs every product whole on every
-    chip; the port's ``common.mm`` keeps each product sharded and sums its
-    partial sums over the model axis (``summed`` 's all-reduce forward,
-    ``summed_grad`` 's at each column-parallel product's input backward,
-    and ``wo`` on its row shard).  The totals keep the measured ratio, the
-    all-gathers stay within 2x, and the excess is all-reduce and
-    reduce-scatter."""
-    ref, port = oracle[cell]["collectives"]["bytes_by_kind"], plans[cell]["collectives"]["bytes_by_kind"]
-    ratio = sum(port.values()) / sum(ref.values())
-    assert round(ratio, 2) == PINNED[cell], ratio
-    assert 0.5 <= port["all-gather"] / ref["all-gather"] <= 2.0
-    reduced = port["all-reduce"] + port["reduce-scatter"] - ref["all-reduce"] - ref["reduce-scatter"]
-    assert reduced >= 0.95 * (sum(port.values()) - sum(ref.values()))
+    """The port's collectives over the step within 0.5-2x of the
+    reference's on ``Auto`` mesh axes (where its sharding constraints act
+    and GSPMD partitions each product), in elements: the reference's each
+    counted as often as the loops around it run (``elements_per_trip``;
+    its bytes are float32 on the host, the port's bf16 where the step's
+    are), the port's over every layer and microbatch."""
+    ref = oracle[cell]
+    port = plans[cell]["collective_elements_by_kind"]
+    ratio = sum(port.values()) / sum(ref["elements_per_trip"].values())
+    assert 0.5 <= ratio <= 2.0, (ratio, port, ref["elements_per_trip"])
+    assert set(ref["elements_per_trip"]) <= set(port) == set(dryrun.COLLECTIVE_KINDS)
+    coll = plans[cell]["collectives"]
+    assert coll["total_per_chip_bytes"] == sum(coll["bytes_by_kind"].values())
+    assert ref["collectives_per_trip"]["total_per_chip_bytes"] >= ref["collectives"]["total_per_chip_bytes"]
 
 
 #: the reference's dtype names of the port's collective operands
@@ -233,10 +237,11 @@ def zero3_bytes(cfg, mode: str, n: int, batch: int, seq: int):
       use (train: the forward, the recompute, the backward's product; the
       final norm, outside the remat, twice); its gradient reduce-scattered;
     * the embedding lookup gathers the token ids (int32, each chip's rows)
-      and looks up the global batch's rows in its D columns; an all-to-all
-      (an all-gather on a CPU mesh) takes them back to the batch's rows, a
-      block of the rows' activations; the backward does both again, and
-      the table's gradient needs no collective more;
+      once and looks up the global batch's rows in its D columns; an
+      all-to-all (an all-gather on a CPU mesh) takes them back to the
+      batch's rows, a block of the rows' activations; the backward's
+      all-to-all takes the gradient back to the columns, where it is added
+      into the table's block with no collective more;
     * each param replicated over ``data`` has its gradient all-reduced
       whole; the loss's token count and each data-sharded leaf's share of
       the global gradient norm are float32 scalars, all-reduced."""
@@ -264,7 +269,7 @@ def zero3_bytes(cfg, mode: str, n: int, batch: int, seq: int):
         whole = t.numel() * t.element_size()
         sharded += on_data
         if name == "embed":
-            add("all-gather", torch.int32, (1 + train) * rows * seq * 4)
+            add("all-gather", torch.int32, rows * seq * 4)
             add("all-gather", t.dtype, (1 + train) * rows * seq * cfg.d_model * t.element_size())
         elif len(per) == 2 and "embed" in per and on_data:
             add("all-gather", t.dtype, (1 + (train and stacked)) * whole // n)
@@ -335,24 +340,28 @@ def test_data_parallel_collectives_counted_by_hand(plans, cell):
 
 @pytest.mark.parametrize("cell", list(ZERO3), ids=lambda c: "-".join(map(str, c[:2] + c[3:])))
 def test_zero3_where_the_reference_gathers_and_all_reduces_in_float32(oracle, plans, cell):
-    """Where the port's ZeRO-3 traffic sends fewer bytes than half the
-    reference's: the port's collectives are the hand count by kind and
-    dtype (bf16 weights and gradients); every collective of the
-    reference's host lowering is float32 or int32 (XLA on the host gathers
-    the bf16 weights and all-reduces the gradients as float32); and the
-    ratio of the collectives' elements (each collective's bytes over its
-    dtype's size, on both sides) keeps its measured value."""
+    """On a pure data-parallel mesh: the port's collectives are the hand
+    count by kind and dtype (bf16 weights gathered and their gradients
+    reduce-scattered whole); every collective of the reference's host
+    lowering is float32 or int32 (XLA on the host gathers the bf16 weights
+    and all-reduces the gradients whole as float32, in each layer's trip
+    of its scan); and the ratio of the collectives' elements over the
+    step (each collective's bytes over its dtype's size, on both sides;
+    the reference's counted per loop trip) keeps its measured value."""
     cfg, b, s = _size(cell)
     want = zero3_bytes(cfg, cell[1], cell[2][0], b, s)
     assert _count_by_dtype(cell) == {k: v for k, v in want.items() if v}
     assert plans[cell]["collectives"]["bytes_by_kind"] == _by_kind(want)
+    elements = sum(v / DTYPE_BYTES[d] for (_, d), v in want.items())
+    assert elements == sum(plans[cell]["collective_elements_by_kind"].values())
     ref = oracle[cell]
-    ref_by_dtype = ref["collectives_by_dtype"]
+    ref_by_dtype = ref["collectives_by_dtype_per_trip"]
     assert {d for by in ref_by_dtype.values() for d in by} <= {"f32", "s32"}
     for kind, by in ref_by_dtype.items():
-        assert sum(by.values()) == pytest.approx(ref["collectives"]["bytes_by_kind"][kind], rel=1e-12)
-    elements = sum(v / DTYPE_BYTES[d] for (_, d), v in want.items())
-    ref_elements = sum(v / DTYPE_BYTES[d] for by in ref_by_dtype.values() for d, v in by.items())
+        assert sum(by.values()) == pytest.approx(ref["collectives_per_trip"]["bytes_by_kind"][kind], rel=1e-12)
+    ref_elements = sum(ref["elements_per_trip"].values())
+    assert ref_elements == pytest.approx(sum(v / DTYPE_BYTES[d] for by in ref_by_dtype.values()
+                                             for d, v in by.items()), rel=1e-12)
     assert round(elements / ref_elements, 2) == ZERO3[cell], elements / ref_elements
 
 
@@ -362,7 +371,7 @@ def test_reference_cannot_lower_the_moe_cells(mesh):
     ``dispatch_seq``) calls ``jnp.repeat`` without the output sharding that
     jax asks for under a mesh, so GSPMD lowers no MoE cell and mixtral has
     no oracle; the port plans the same cell."""
-    out = _oracle([("mixtral-8x7b", "prefill", mesh)])
+    out = _oracle([_spec(("mixtral-8x7b", "prefill", mesh), "explicit")])
     assert out.returncode != 0 and "jnp.repeat" in out.stderr and "dispatch_seq" in out.stderr
     plan = _plan("mixtral-8x7b", "prefill", mesh)
     assert plan["status"] == "ok" and plan["flops_per_chip"] > 0
@@ -524,13 +533,13 @@ def test_wo_runs_on_its_row_shard_as_the_reference_lowers_it(oracle):
     forward, the remat's recompute, dx and dw in each layer and
     microbatch) are a quarter of those with its rows gathered, counted
     by ``StepCount``."""
-    (auto,) = oracle[WO_CELL + ("auto",)]["wo_dots"]
-    (explicit,) = oracle[WO_CELL]["wo_dots"]
+    (auto,) = oracle[WO_CELL]["wo_dots"]
+    (explicit,) = oracle[WO_CELL + ("explicit",)]["wo_dots"]
     cfg, b, s = _size(WO_CELL)
     rows_block, hd_rows, d = cfg.n_heads * cfg.hd // 4, cfg.n_heads * cfg.hd, cfg.d_model
     assert _shape(auto[2]) == (rows_block, d) and _shape(auto[1])[1] == rows_block
     assert _shape(explicit[2]) == (hd_rows, d)
-    assert oracle[WO_CELL + ("auto",)]["collectives"]["bytes_by_kind"]["all-reduce"] > 0
+    assert oracle[WO_CELL]["collectives"]["bytes_by_kind"]["all-reduce"] > 0
     mesh = make_mesh(WO_CELL[2], ("data", "model"), device="meta")
 
     def count(out_proj=None):
@@ -594,11 +603,14 @@ def test_column_parallel_input_gradients_all_reduced_as_the_reference_lowers_the
     (4, 256, 1), nine scalars) but for the cross-entropy's logsumexp over
     the model-sharded vocab: the reference all-reduces its max and its sum,
     (4, 256) each per microbatch, where the port gathers the float32
-    logits' blocks.  All axes together the port's all-reduce elements are
-    0.66 of the reference's: on the data axis the reference all-reduces
-    the weights' float32 gradients, which the port reduce-scatters onto
-    their FSDP blocks."""
-    ref = oracle[WO_CELL + ("auto",)]
+    logits' blocks; and for the embedding's lookup, whose masked rows
+    (each microbatch's 8 rows on each chip's 640 columns, the residual
+    block's size here) the port all-reduces over the model axis and the
+    reference over pairs of its chips.  All axes together the port's
+    all-reduce elements are 0.70 of the reference's: on the data axis the
+    reference all-reduces the weights' float32 gradients, which the port
+    reduce-scatters onto their FSDP blocks."""
+    ref = oracle[WO_CELL]
     cfg, b, s = _size(WO_CELL)
     data, model = WO_CELL[2]
     q, kv, f = cfg.n_heads * cfg.hd // model, cfg.n_kv_heads * cfg.hd // model, cfg.d_ff // model
@@ -616,11 +628,111 @@ def test_column_parallel_input_gradients_all_reduced_as_the_reference_lowers_the
     assert counts["all-reduce:model:other"] == 0
     microbatches = b // (data * 4)
     rows = b // microbatches // data
-    assert port[rows * s * cfg.d_model] == (3 + 5) * cfg.n_layers * microbatches + microbatches
+    # the embedding's lookup (the microbatch's rows on each chip's D / data
+    # columns) is the residual block's size here
+    assert rows * s * cfg.d_model == b // microbatches * s * (cfg.d_model // data)
+    assert port[rows * s * cfg.d_model] == (3 + 5) * cfg.n_layers * microbatches + 2 * microbatches
     logsumexp = collections.Counter({rows * s: 2 * microbatches})
-    assert collections.Counter(port) + logsumexp == collections.Counter(want)
+    lookup = collections.Counter({rows * s * cfg.d_model: microbatches})
+    assert collections.Counter(port) + logsumexp == collections.Counter(want) + lookup
     ref_elements = sum(int(n) * c for by in ref["all_reduce_operands"].values() for n, c in by.items())
-    assert round(counts["all-reduce:elements"] / ref_elements, 2) == 0.66, counts["all-reduce:elements"] / ref_elements
+    assert round(counts["all-reduce:elements"] / ref_elements, 2) == 0.70, counts["all-reduce:elements"] / ref_elements
+
+
+#: cells with a model axis, whose all-reduces over it are held operand for
+#: operand to the reference's
+MODEL_AXIS_CELLS = [c for c in CELLS if c[2][1] > 1]
+#: the cells on which the reference's partitioner moves the embedding's
+#: lookup over the model axis by another op than an all-reduce of the
+#: whole axis (an all-gather of the activations at d_model 1024, an
+#: all-reduce over pairs of the model axis's chips at 1280)
+LOOKUP_BY_OTHER_OPS = [("qwen3-14b", "prefill", (4, 2), "d1024"), ("qwen3-14b", "prefill", (2, 4), "u1280"),
+                       ("qwen3-14b", "train", (2, 4), "u1280")]
+#: the mamba2 cells' all-reduces over the model axis that only the
+#: reference makes, ``{elements: count}`` as its lowering has them: it
+#: keeps the SSD's state and heads split over the model axis and sums
+#: each chunk's ``C Bᵀ`` scores (batch rows x chunk x chunk, 256 elements
+#: here), the gated norm's mean (rows x tokens, 256) and, backward, the
+#: chunk products' gradients (256, 512) and three of the global norm's
+#: scalars; the port gathers the SSD's projection over the model axis
+#: (``ssm._split_proj`` pins it to the batch axes) and runs the SSD whole
+#: on each chip
+SSD_ON_MODEL_SHARDS = {("mamba2-780m", "prefill", (4, 2)): {256: 18},
+                       ("mamba2-780m", "train", (4, 2)): {256: 52, 512: 32, 1: 3}}
+
+
+def model_axis_differences(cell):
+    """What sets the port's model-axis all-reduces apart from the
+    reference's, by name: ``{name: (port only, reference only)}``, each
+    ``{elements: count}`` over the step.
+
+    * ``logsumexp`` (train): the reference all-reduces the loss's max and
+      sum over the model-sharded vocabulary, (rows, tokens) each per
+      microbatch; the port gathers the float32 logits' blocks;
+    * ``qk-norm gammas`` (train, where the model axis divides the query or
+      the KV heads): the reference all-reduces each layer's (hd,)
+      gradient in its scan's trip, the port the stacked leaf's (L·hd,)
+      once per microbatch: the same elements;
+    * ``embedding gradient`` (train on (4, 2)): the reference all-reduces
+      the table's gradient over the model axis, its whole vocabulary on
+      each chip's D / data columns, once per microbatch; the port adds
+      each chip's ids into its own vocabulary block (``common.embed_rows``);
+    * ``embedding lookup`` (``LOOKUP_BY_OTHER_OPS``): the port all-reduces
+      the masked lookup of the microbatch's rows over the model axis, the
+      reference moves it by another op;
+    * ``decode scores`` (decode): over a cache whose head dim is split on
+      the model axis the port all-reduces the scores' partial sums,
+      (rows, K, G, 1, T) in each layer, where the reference reshards q and
+      the cache by all-to-all;
+    * ``SSD`` (mamba2): ``SSD_ON_MODEL_SHARDS``."""
+    cfg, b, s = _size(cell)
+    arch, mode, (data, model) = cell[:3]
+    mb = max(1, b // (data * 4)) if mode == "train" else 1
+    rows = b // mb // data
+    out = {}
+    if mode == "train":
+        out["logsumexp"] = ({}, {rows * s: 2 * mb})
+        norms = cfg.qk_norm * ((cfg.n_heads % model == 0) + (cfg.n_kv_heads % model == 0))
+        if norms:
+            out["qk-norm gammas"] = ({cfg.n_layers * cfg.hd: norms * mb}, {cfg.hd: norms * cfg.n_layers * mb})
+        if cell[2] == (4, 2):
+            out["embedding gradient"] = ({}, {cfg.vocab_padded * cfg.d_model // data: mb})
+    if cell in LOOKUP_BY_OTHER_OPS:
+        out["embedding lookup"] = ({b // mb * s * cfg.d_model // data: mb}, {})
+    if mode == "decode":
+        kv = cfg.n_kv_heads
+        out["decode scores"] = ({rows * kv * (cfg.n_heads // kv) * s: cfg.n_layers}, {})
+    if cell in SSD_ON_MODEL_SHARDS:
+        out["SSD"] = ({}, SSD_ON_MODEL_SHARDS[cell])
+    return {k: tuple(collections.Counter(c) for c in v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("cell", MODEL_AXIS_CELLS, ids=lambda c: "-".join(map(str, c[:2] + c[3:])) +
+                         f"-{c[2][0]}x{c[2][1]}")
+def test_model_axis_all_reduces_as_the_reference_lowers_them(oracle, cell):
+    """On every cell with a model axis: the port's all-reduces over it,
+    operand for operand over the step (``{elements: count}``, each layer
+    and microbatch counted), are the reference's on ``Auto`` mesh axes
+    (``all_reduce_operands``, each counted as often as the loops around it
+    run) but for the differences ``model_axis_differences`` names."""
+    ref = oracle[cell]
+    want = collections.Counter({int(n): c for n, c in ref["all_reduce_operands"].get("model", {}).items()})
+    differences = model_axis_differences(cell)
+    port_only = sum((p for p, _ in differences.values()), collections.Counter())
+    ref_only = sum((r for _, r in differences.values()), collections.Counter())
+    cfg, b, s = _size(cell)
+    mesh = make_mesh(cell[2], ("data", "model"), device="meta")
+    with pytest.MonkeyPatch.context() as mp, fake_device_mesh(mesh) as dm:
+        _short(mp, s)
+        counter = _AllReducesByAxis({dm.get_group(i).group_name: a for i, a in enumerate(dm.mesh_dim_names)},
+                                    sorted(set(want) | set(port_only)))
+        counts, _ = dryrun.count_step(counter, *dryrun.cell_step(cfg, SHAPE_OF[cell[1]], mesh, dm,
+                                                                 batch_override=b))
+    assert counts["all-reduce:model:other"] == 0
+    port = collections.Counter({n: counts[f"all-reduce:model:{n}"] for n in set(want) | set(port_only)
+                                if counts[f"all-reduce:model:{n}"]})
+    assert not port_only - port and not ref_only - want, differences
+    assert port - port_only == want - ref_only, (port, want, differences)
 
 
 @pytest.mark.parametrize("mode", ["train", "prefill", "decode"])
@@ -695,7 +807,8 @@ def assert_sharded_meta_equals_cpu(arch, mode, mesh):
 
             counts.append(_warm_count(*build(), build))
     meta, cpu = ({k: v for k, v in c.items() if k != "bytes_accessed"} for c in counts)
-    assert meta == cpu and meta["temp_bytes"] > 0 and meta["all-gather_count"] > 0
+    assert meta == cpu and meta["temp_bytes"] > 0
+    assert sum(meta[f"{k}_count"] for k in dryrun.COLLECTIVE_KINDS) > 0
     host = counts[1]["bytes_accessed"] - counts[0]["bytes_accessed"]
     assert abs(host) <= 1e-3 * counts[0]["bytes_accessed"], host
 
@@ -755,6 +868,27 @@ def test_plan_takes_the_microbatch_count():
     assert default["scan_info"]["grad_accum"] == max(1, B // 4) and two["scan_info"]["grad_accum"] == 2
     assert two["flops_per_chip"] == default["flops_per_chip"]
     assert two["memory_analysis"]["temp_bytes"] > default["memory_analysis"]["temp_bytes"]
+
+
+def test_oracle_counts_collectives_per_loop_trip():
+    """``tests/partition_oracle.py`` 's trip counting, on a ``jax.lax.scan``
+    of 5 trips that all-reduces its (96,) float32 carry over 8 fake host
+    devices in its body: once per body the all-reduce's 384 bytes, per
+    trip 5 times as many, in 4-byte elements; with six arrays all-reduced
+    (one all-reduce of a tuple, which ``parse_collectives`` skips) per trip
+    six times that."""
+    out = _oracle_run(["--scan-psum", "5"])
+    assert out.returncode == 0, out.stderr[-4000:]
+    one, six = json.loads(out.stdout.splitlines()[-1])
+    once = one["collectives"]["bytes_by_kind"]["all-reduce"]
+    assert once == 96 * 4 and one["collectives"]["counts"]["all-reduce"] == 1
+    assert six["collectives"]["total_per_chip_bytes"] == 0
+    for r, parts in ((one, 1), (six, 6)):
+        trips = r["collectives_per_trip"]
+        assert trips["bytes_by_kind"]["all-reduce"] == trips["total_per_chip_bytes"] == 5 * parts * once
+        assert trips["counts"]["all-reduce"] == 5
+        assert r["collectives_by_dtype_per_trip"] == {"all-reduce": {"f32": 5 * parts * once}}
+        assert r["elements_per_trip"] == {"all-reduce": 5 * parts * once / 4}
 
 
 def test_collective_kinds():
@@ -852,12 +986,11 @@ def test_gathered_replicates_the_axes_of_a_dim():
     mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), device="meta")
     with fake_device_mesh(mesh) as dm:
         x = to_dtensor(NamedSharding(mesh, P(("pod", "data"), "model")), torch.empty(8, 6, device="meta"), dm)
-        assert common.gathered(x, 0, keep_last_axis=True).placements == (Replicate(), Shard(0), Shard(1))
         assert common.gathered(x, 0).placements == (Replicate(), Replicate(), Shard(1))
         assert common.gathered(x, -1).placements == (Shard(0), Shard(0), Replicate())
         assert common.gathered(x).placements == (Replicate(),) * 3
         one = common.gathered(x, -1)
-        assert common.gathered(one, 1) is one and common.gathered(one, 1, keep_last_axis=True) is one
+        assert common.gathered(one, 1) is one
 
 
 @pytest.mark.parametrize("rank", [0, 1])

@@ -9,7 +9,8 @@ cell of the sweep:
   (``_StridedShard``, what torch 2.11 refuses) than qwen3-14b's step;
 * one MoE block's collectives, forward and backward, worked out by hand;
 * each form that a refusal on torch 2.11 called for, pinned on 2.13 by
-  the placement it sets, and the identity on plain tensors.
+  the placement it sets, and the identity on plain tensors (the
+  embedding's lookup and its backward on local blocks too).
 
 The helpers are ``test_torch_partition.py`` 's; this file holds no oracle
 subprocess, so it can run on a worker of its own.
@@ -17,7 +18,7 @@ subprocess, so it can run on a worker of its own.
 import pytest
 import torch
 import torch.testing._internal.distributed.fake_pg  # noqa: F401  (registers the "fake" backend)
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 from torch.distributed.tensor.placement_types import _StridedShard
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -223,6 +224,64 @@ def test_batch_rows_runs_on_each_chips_rows():
         for d, w in ((rows, want[0]), (nxt, want[1])):
             assert d.placements == (Shard(0), Shard(0), Replicate()) and d.shape == w.shape
             assert torch.equal(d.to_local(), w[:2])
+
+
+def test_embed_rows_looks_up_and_adds_on_local_blocks():
+    """``common.embed_rows`` on plain tensors is the index ``table[tokens]``
+    itself, its rows and its gradient (repeated ids summed) bitwise.  On
+    DTensors, the table laid out as a model's (``("vocab", "embed")``:
+    its columns over ``data``, its rows over ``model``) and the ids as a
+    batch: neither the lookup nor its backward runs an index, a scatter or
+    an ``index_put`` on a DTensor (torch 2.11 plans no ``index_put`` of the
+    gradient with one microbatch on a data axis); the rows are laid out as
+    the table's columns on the data axes (whole on ``pod``, where the
+    table is replicated) and completed over ``model``, the gradient of the
+    table takes the table's placements and block.  On a (1, 2) CPU mesh
+    rank 0's rows before the sum over ``model`` are the plain rows whose
+    ids fall in its half of the vocabulary (zeros elsewhere), and its
+    block of the gradient is the plain gradient's first half."""
+    gen = torch.Generator().manual_seed(0)
+    table = torch.randn(16, 8, generator=gen).to(torch.bfloat16)
+    tokens = torch.randint(0, 16, (4, 8), generator=gen, dtype=torch.int32)
+    grad = torch.randn(4, 8, 8, generator=gen).to(torch.bfloat16)
+    grads = []
+    for f in (common.embed_rows, lambda t, i: t[i]):
+        t = table.clone().requires_grad_(True)
+        rows = f(t, tokens)
+        rows.backward(grad)
+        grads.append((rows.detach(), t.grad))
+    assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
+
+    for shape, names in (((4, 1), ("data", "model")), ((2, 2), ("data", "model")),
+                         ((2, 2, 2), ("pod", "data", "model"))):
+        mesh = make_mesh(shape, names, device="meta")
+        batch = tuple(n for n in names if n != "model")
+        with fake_device_mesh(mesh) as dm:
+            t = to_dtensor(NamedSharding(mesh, P("model", "data")), table.to("meta"), dm).requires_grad_(True)
+            ids = to_dtensor(NamedSharding(mesh, P(batch)), tokens.to("meta"), dm)
+            seen = _DTensorOps()
+            with implicit_replication(), seen:
+                rows = common.embed_rows(t, ids)
+                common.constrain_batch(rows).float().sum().backward()
+            want = [Replicate() if n == "pod" else Shard(2) if n == "data" else Replicate() for n in names]
+            assert rows.placements == tuple(want), (shape, rows.placements)
+            assert t.grad.placements == t.placements and t.grad.to_local().shape == t.to_local().shape
+        indexing = [f for f, _ in seen.ops if f._overloadpacket in (
+            torch.ops.aten.index, torch.ops.aten.index_put, torch.ops.aten.index_put_, torch.ops.aten.scatter_,
+            torch.ops.aten.scatter_add_, torch.ops.aten._index_put_impl_, torch.ops.aten.embedding)]
+        assert seen.ops and not indexing, (shape, indexing)
+
+    mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
+    with fake_device_mesh(mesh) as dm:
+        t = to_dtensor(NamedSharding(mesh, P("model", "data")), table, dm).requires_grad_(True)
+        ids = to_dtensor(NamedSharding(mesh, P("data")), tokens, dm)
+        with implicit_replication():
+            partial = common._EmbedRows.apply(t, ids)
+            partial.backward(to_dtensor(NamedSharding(mesh, P()), grad, dm))
+        mine = (tokens < 8)[..., None]
+        assert partial.placements == (Replicate(), Partial())
+        assert torch.equal(partial.to_local(), torch.where(mine, table[tokens], 0))
+        assert torch.equal(t.grad.to_local(), grads[1][1][:8])
 
 
 def test_fsdp_gathered_replicates_the_data_axes():
