@@ -18,7 +18,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial
 
 from .._device import make_generator, resolve_device
 from .common import (
@@ -32,9 +32,11 @@ from .common import (
     init_zeros,
     local_block,
     mm,
+    model_block,
     rmsnorm,
     row_block,
     split_last,
+    summed,
     summed_grad,
     whole_grad,
 )
@@ -117,6 +119,10 @@ def _sdpa(q, k, v, mask):
     B, S, H, hd = q.shape
     K = k.shape[2]
     G = H // K
+    if K == 1 and isinstance(k, DTensor) and not any(p.is_shard(d) for p in k.placements for d in (1, 2, 3)):
+        heads = model_block(q, 2)
+        if heads.placements != q.placements:
+            return _mqa_local(heads, k, v, mask)
     q = even_heads(q, 2, K).reshape(B, S, K, G, hd)
     scores = einsum("bskgh,btkh->bkgst", q, k).float()
     # jnp.sqrt(hd) is a float32 sqrt; a float64 sqrt rounds to the same float32
@@ -126,9 +132,37 @@ def _sdpa(q, k, v, mask):
     else:
         mask_b = mask[:, None, None]
     scores = torch.where(mask_b, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    probs = _softmax(scores).to(v.dtype)
     out = einsum("bkgst,btkh->bskgh", probs, v)
     return whole_grad(out.reshape(B, S, H, hd), 2)
+
+
+def _mqa_local(q: DTensor, k: DTensor, v: DTensor, mask) -> DTensor:
+    """Multi-query attention (one KV head, whole on every chip) on each
+    chip's block of the query heads, as the reference's partitioner runs
+    it: :func:`_sdpa` on the local blocks, ``q`` 's heads split over the
+    model axis (:func:`common.model_block`), and the KV's gradients, each
+    chip's heads' share, all-reduced where they are made
+    (:func:`common.summed_grad`).  On local blocks because torch 2.11's
+    DTensor cannot flatten the product's batch dims with the heads split
+    inside them.  Returns (B, S, H, hd) laid out as ``q``."""
+    grad = [Partial() if p.is_shard(2) else p for p in q.placements]
+    out = _sdpa(q.to_local(), summed_grad(k).to_local(grad_placements=grad),
+                summed_grad(v).to_local(grad_placements=grad), mask)
+    return DTensor.from_local(out, q.device_mesh, q.placements, run_check=False, shape=q.shape, stride=q.stride())
+
+
+def _softmax(scores: torch.Tensor) -> torch.Tensor:
+    """``torch.softmax(scores, -1)``; on a DTensor whose keys (the last
+    dim) are sharded, a decode cache split over its slots, the max and the
+    sum of the exponentials are each chip's partial results, all-reduced
+    (:func:`common.summed`), as the reference's partitioner runs the
+    softmax over a split cache, where DTensor would gather the scores
+    whole."""
+    if not (isinstance(scores, DTensor) and any(p.is_shard(scores.ndim - 1) for p in scores.placements)):
+        return torch.softmax(scores, dim=-1)
+    e = torch.exp(scores - summed(scores.amax(-1, keepdim=True)))
+    return e / summed(e.sum(-1, keepdim=True))
 
 
 #: sequences at/above this length use the memory-bounded flash path

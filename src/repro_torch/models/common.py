@@ -44,6 +44,7 @@ __all__ = [
     "fsdp_gathered",
     "gathered",
     "local_block",
+    "model_block",
     "split_last",
     "whole_grad",
     "summed",
@@ -380,6 +381,23 @@ def row_block(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     pl = [Shard(x.ndim - 1) if q.is_shard(0) and p.is_replicate() and names[i] not in FSDP_AXES else p
           for i, (p, q) in enumerate(zip(x.placements, w.placements))]
     return x if pl == list(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
+def model_block(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` sliced to each chip's block of its ``dim`` on the
+    tensor-parallel mesh axes (those outside :data:`FSDP_AXES`, of size >
+    1) where ``x`` is whole and the axis divides ``dim`` (``Replicate`` ->
+    ``Shard``: a slice, no collective; its backward gathers the gradient's
+    blocks), as the reference's partitioner slices a replicated activation
+    to the heads a product runs on.  The identity on a plain tensor."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names or ()
+    d = dim % x.ndim
+    pl = [Shard(d) if p.is_replicate() and names[i] not in FSDP_AXES and mesh.size(i) > 1
+          and x.shape[d] % mesh.size(i) == 0 else p for i, p in enumerate(x.placements)]
+    return x if pl == list(x.placements) else x.redistribute(mesh, pl)
 
 
 def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -4,9 +4,12 @@ For each (arch, mode, mesh) cell given as JSON on the command line, the
 reference's ``launch/dryrun.py`` lowering at a SMOKE config's width: the
 step (``make_train_step`` with the reference's microbatch rule,
 ``make_prefill_step`` or ``make_serve_step``) jitted with its shardings
-over ``jax.make_mesh(mesh, ("data", "model"))``, lowered and compiled by
-GSPMD.  Prints one JSON line per cell: ``parse_collectives`` of the
-compiled text and the compiled ``temp_size_in_bytes``.  The port's
+over ``jax.make_mesh(mesh, ("data", "model"))`` on the inputs its
+``input_specs`` makes (``_token_specs``: whisper's audio frames and
+qwen2-vl's patch embeddings besides the tokens and labels; decode's
+token), lowered and compiled by GSPMD.  Prints one JSON line per cell:
+``inputs`` (each input's shape), ``parse_collectives`` of the compiled
+text and the compiled ``temp_size_in_bytes``.  The port's
 partitioned dry run is held against these numbers
 (``tests/test_torch_partition.py``); run alone:
 
@@ -74,6 +77,7 @@ import numpy as np  # noqa: E402
 from jax.sharding import AxisType, NamedSharding, PartitionSpec  # noqa: E402
 
 from repro.configs import get_config  # noqa: E402
+from repro.configs.shapes import _token_specs  # noqa: E402
 from repro.dist.sharding import batch_sharding, default_rules, tree_shardings  # noqa: E402
 from repro.launch.dryrun import _DTYPE_BYTES, _SHAPE_RE, _decode_state_shardings, parse_collectives  # noqa: E402
 from repro.models import init_decode_state, init_params  # noqa: E402
@@ -300,16 +304,19 @@ def lower(arch: str, mode: str, mesh_shape, B: int, S: int, scaled=None, axes=No
 
     params = jax.eval_shape(build)
     params_sh = tree_shardings(box["axes"], params, mesh, rules)
+    # the step's inputs as the reference's own dry run makes them
+    # (``input_specs``): the audio frames and patch embeddings too
+    batch = _token_specs(cfg, B, S, labels=True)
     with jax.sharding.set_mesh(mesh):
         if mode == "decode":
             state = jax.eval_shape(lambda: init_decode_state(cfg, B, S))
             token = jax.ShapeDtypeStruct((B, 1), jnp.int32)
+            batch = {"token": token}
             shardings = (params_sh, batch_sharding(mesh, rules, shape=token.shape),
                          _decode_state_shardings(state, mesh, rules))
             lowered = jax.jit(make_serve_step(cfg), in_shardings=shardings,
                               donate_argnums=(2,)).lower(params, token, state)
         else:
-            batch = {k: jax.ShapeDtypeStruct((B, S), jnp.int32) for k in ("tokens", "labels")}
             batch_sh = {k: batch_sharding(mesh, rules, shape=v.shape) for k, v in batch.items()}
             if mode == "prefill":
                 lowered = jax.jit(make_prefill_step(cfg), in_shardings=(params_sh, batch_sh)).lower(
@@ -331,6 +338,7 @@ def lower(arch: str, mode: str, mesh_shape, B: int, S: int, scaled=None, axes=No
     by_dtype = collectives_by_dtype(text)
     return {"arch": arch, "mode": mode, "mesh": list(mesh_shape), "batch": B, "seq": S,
             "scaled": SCALED if scaled is None else scaled, "axes": axes or "explicit",
+            "inputs": {k: list(v.shape) for k, v in batch.items()},
             "collectives": parse_collectives(text), "collectives_by_dtype": by_dtype,
             "elements": _elements(by_dtype), **per_trip(text),
             "temp_bytes": compiled.memory_analysis().temp_size_in_bytes,

@@ -19,8 +19,10 @@ local ops and collectives add up to.
   over it operand for operand the reference's but for the differences
   ``model_axis_differences`` names (the logsumexp, the qk-norm gammas'
   grouping, the embedding's gradient and lookup, decode's scores, the
-  SSD); on the u1280 train cell ``wo`` runs on its row shard as the
-  reference lowers it (on the default ``Explicit`` axes, lowered for
+  two remainders of mamba2's train step, and in
+  ``tests/test_torch_partition_archs.py`` 's cells the patch projection);
+  on the u1280 train cell ``wo`` runs on its row shard as the reference
+  lowers it (on the default ``Explicit`` axes, lowered for
   this cell only, every product runs whole), its FLOPs per chip a
   quarter of the gathered form's, and one all-reduce per column-parallel
   product's input gradient, as the reference's; on (8, 1) the port's
@@ -648,17 +650,22 @@ MODEL_AXIS_CELLS = [c for c in CELLS if c[2][1] > 1]
 #: all-reduce over pairs of the model axis's chips at 1280)
 LOOKUP_BY_OTHER_OPS = [("qwen3-14b", "prefill", (4, 2), "d1024"), ("qwen3-14b", "prefill", (2, 4), "u1280"),
                        ("qwen3-14b", "train", (2, 4), "u1280")]
-#: the mamba2 cells' all-reduces over the model axis that only the
-#: reference makes, ``{elements: count}`` as its lowering has them: it
-#: keeps the SSD's state and heads split over the model axis and sums
-#: each chunk's ``C Bᵀ`` scores (batch rows x chunk x chunk, 256 elements
-#: here), the gated norm's mean (rows x tokens, 256) and, backward, the
-#: chunk products' gradients (256, 512) and three of the global norm's
-#: scalars; the port gathers the SSD's projection over the model axis
-#: (``ssm._split_proj`` pins it to the batch axes) and runs the SSD whole
-#: on each chip
-SSD_ON_MODEL_SHARDS = {("mamba2-780m", "prefill", (4, 2)): {256: 18},
-                       ("mamba2-780m", "train", (4, 2)): {256: 52, 512: 32, 1: 3}}
+#: the cells on which the reference's partitioner splits the patch
+#: projection's contraction over the model axis: qwen2-vl's train step on
+#: (2, 4) only (not on (4, 2), nor in prefill)
+PATCH_PROJ_SPLIT = [("qwen2-vl-72b", "train", (2, 4))]
+
+
+def _attention_caches(cfg, s):
+    """Each decode cache of ``cfg`` 's attention layers: ``(slots, layers)``
+    of the self-attention caches (a ring of the window) and, for an
+    encoder-decoder, of the cross-attention caches."""
+    if cfg.kind == "encdec":
+        return [(s, cfg.n_layers), (cfg.enc_seq, cfg.n_layers)]
+    n_groups, tail = divmod(cfg.n_layers, len(cfg.block_pattern))
+    layers = n_groups * cfg.block_pattern.count("a") + cfg.block_pattern[:tail].count("a")
+    slots = min([s] + [w for w in (cfg.sliding_window, cfg.attn_chunk) if w])
+    return [(slots, layers)] if layers else []
 
 
 def model_axis_differences(cell):
@@ -680,11 +687,27 @@ def model_axis_differences(cell):
     * ``embedding lookup`` (``LOOKUP_BY_OTHER_OPS``): the port all-reduces
       the masked lookup of the microbatch's rows over the model axis, the
       reference moves it by another op;
-    * ``decode scores`` (decode): over a cache whose head dim is split on
-      the model axis the port all-reduces the scores' partial sums,
-      (rows, K, G, 1, T) in each layer, where the reference reshards q and
-      the cache by all-to-all;
-    * ``SSD`` (mamba2): ``SSD_ON_MODEL_SHARDS``."""
+    * ``decode scores`` (decode, each attention layer whose cache the
+      decode state's rule splits on its head dim, the widest): the port
+      all-reduces the scores' partial sums, (rows, H, 1, slots), where the
+      reference reshards q and the cache by all-to-all (a cache split on
+      its slots runs the softmax on them in both, its max and sum
+      all-reduced);
+    * ``patch projection`` (``PATCH_PROJ_SPLIT``): the reference splits the
+      patch projection's contraction over the model axis and all-reduces
+      its (rows, patches, D) output per microbatch, on that mesh only; the
+      port runs it on the gathered weight, as the reference does on (4, 2)
+      and in prefill;
+    * ``unread last state`` (mamba2 train, the SSD on its model shards):
+      the reference's scan transposes its body in every trip, so it
+      all-reduces ``B`` 's gradient from the last chunk's state update,
+      (rows, chunk, N) per layer and microbatch, whose state no chunk
+      reads (zeros); the port's autograd runs no backward for it;
+    * ``head params' norm`` (the same cells): the reference keeps the
+      gradients of ``A_log``, ``dt_bias`` and ``D_skip`` on each chip's
+      heads and all-reduces their squares' sums in the global norm, three
+      scalars a step; the port gathers them over the model axis (an
+      all-gather) where they are made."""
     cfg, b, s = _size(cell)
     arch, mode, (data, model) = cell[:3]
     mb = max(1, b // (data * 4)) if mode == "train" else 1
@@ -700,10 +723,19 @@ def model_axis_differences(cell):
     if cell in LOOKUP_BY_OTHER_OPS:
         out["embedding lookup"] = ({b // mb * s * cfg.d_model // data: mb}, {})
     if mode == "decode":
-        kv = cfg.n_kv_heads
-        out["decode scores"] = ({rows * kv * (cfg.n_heads // kv) * s: cfg.n_layers}, {})
-    if cell in SSD_ON_MODEL_SHARDS:
-        out["SSD"] = ({}, SSD_ON_MODEL_SHARDS[cell])
+        scores = collections.Counter()
+        for slots, layers in _attention_caches(cfg, s):
+            # the decode state's rule: the widest of (slots, K, hd) that the
+            # model axis divides, the last of equals
+            if max((d, i) for i, d in enumerate((slots, cfg.n_kv_heads, cfg.hd)) if d % model == 0)[1] == 2:
+                scores[rows * cfg.n_heads * slots] += layers
+        if scores:
+            out["decode scores"] = (scores, {})
+    if cell in PATCH_PROJ_SPLIT:
+        out["patch projection"] = ({}, {rows * cfg.n_patches * cfg.d_model: mb})
+    if cfg.kind == "ssm" and mode == "train" and model > 1 and cfg.ssm_heads % model == 0 == cfg.ssm_state % model:
+        out["unread last state"] = ({}, {rows * cfg.ssm_chunk * cfg.ssm_state: cfg.n_layers * mb})
+        out["head params' norm"] = ({}, {1: 3})
     return {k: tuple(collections.Counter(c) for c in v) for k, v in out.items()}
 
 

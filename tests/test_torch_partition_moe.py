@@ -32,7 +32,7 @@ from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import common, rglru, ssm
 from repro_torch.models.attention import _merge_heads
 from repro_torch.models.moe import init_moe, moe
-from test_torch_partition import B, SHAPE_OF, _short, assert_sharded_meta_equals_cpu
+from test_torch_partition import B, SHAPE_OF, _AllReducesByAxis, _short, assert_sharded_meta_equals_cpu
 
 MOE_ARCHS = ("mixtral-8x7b", "llama4-scout-17b-a16e")
 MESHES = ((2, 1), (1, 2), (2, 2))
@@ -354,6 +354,80 @@ def test_ssd_cumsum_backward_flips_local_blocks():
         assert torch.equal(out.to_local(), torch.cumsum(a, 1)[:2])
         assert ad.grad.placements == (Shard(0), Replicate()) and torch.equal(ad.grad.to_local(), plain.grad[:2])
     assert seen.ops and not any(f is torch.ops.aten.flip.default for f, _ in seen.ops)
+
+
+def test_ssd_chunk_products_run_on_each_chips_heads_and_state(monkeypatch):
+    """mamba2's SMOKE SSD block (4 heads of 32, a state of 16, chunks of 8),
+    forward and backward on a (2, 2) mesh, 4 x 32 tokens: the chunk loop
+    (``ssm._scan``) runs on each chip's 2 heads and 8 of the state's dims
+    (``ssm._ssd_local``), with the state whole for the heads' state (16).
+    Over the model axis, forward: each chunk's scores ``C Bᵀ``, (rows, Q,
+    Q), and the gated norm's mean, (rows, S, 1), are all-reduced, and
+    ``w_out`` 's partial sums; backward: each chunk's score gradient, the
+    gradient of ``C`` gathered whole over the state, and of ``B`` but in
+    the last chunk, whose state no chunk reads, (rows, Q, N), the norm's,
+    and ``w_in`` 's input gradient.  On plain tensors ``ssd_forward`` is
+    the chunk loop op for op: bitwise the loop written out."""
+    cfg = get_config("mamba2-780m", smoke=True)
+    H, P_, N, d_inner, _ = ssm._dims(cfg)
+    Q, Bsz, S = cfg.ssm_chunk, 4, 32
+    mesh = make_mesh((2, 2), ("data", "model"), device="meta")
+    params, specs = ssm.init_ssd(None, cfg, device="meta")
+    shardings = tree_shardings(specs, params, mesh, default_rules(mesh))
+    u = torch.empty(Bsz, S, cfg.d_model, dtype=torch.bfloat16, device="meta")
+    seen = []
+    scan = ssm._scan
+
+    def spy(x, Bm, Cm, dt, a, Q, N=None, **hooks):
+        seen.append((x.shape, Bm.shape, N))
+        return scan(x, Bm, Cm, dt, a, Q, N, **hooks)
+
+    def step(p, u):
+        for t in (*tree_leaves(p), u):
+            t.requires_grad_(True)
+        with torch.enable_grad():
+            ssm.ssd_forward(p, cfg, u).float().sum().backward()
+
+    rows = Bsz // 2
+    sizes = [rows * Q * Q, rows * Q * N, rows * S, rows * S * cfg.d_model]
+    with fake_device_mesh(mesh) as dm, monkeypatch.context() as mp:
+        mp.setattr(ssm, "_scan", spy)
+        args = to_dtensors((params, u), (shardings, NamedSharding(mesh, P("data"))), dm)
+        counter = _AllReducesByAxis({dm.get_group(i).group_name: a for i, a in enumerate(dm.mesh_dim_names)}, sizes)
+        counts, _ = dryrun.count_step(counter, step, args)
+    assert seen == [((rows, S, H // 2, P_), (rows, S, N // 2), N)]
+    nc = S // Q
+    assert {n: counts[f"all-reduce:model:{n}"] for n in sizes} == {
+        rows * Q * Q: 2 * nc, rows * Q * N: 2 * nc - 1, rows * S: 2, rows * S * cfg.d_model: 2}
+    assert counts["all-reduce:model:other"] == 0
+
+    gen = torch.Generator().manual_seed(0)
+    c32 = cfg.scaled(param_dtype=torch.float32)
+    p, _ = ssm.init_ssd(gen, c32, device="cpu")
+    u = torch.randn(2, S, c32.d_model, generator=gen)
+    assert ssm._heads_axis(u, H, N) is None
+    z, xbc, dt_raw = ssm._split_proj(p, c32, u)
+    xbc, _ = ssm._causal_conv(xbc, p["conv_w"])
+    xh, Bm, Cm = torch.split(xbc, [d_inner, N, N], dim=-1)
+    x = xh.reshape(2, S, H, P_)
+    dt = common.softplus(dt_raw + p["dt_bias"])
+    a = dt * -torch.exp(p["A_log"])
+    h = torch.zeros(2, H, P_, N)
+    ys = []
+    for c in range(nc):
+        q = slice(c * Q, (c + 1) * Q)
+        xq, Bq, Cq, dtq, aq = x[:, q], Bm[:, q], Cm[:, q], dt[:, q], a[:, q]
+        cum = torch.cumsum(aq, 1)
+        y_off = torch.einsum("bqn,bhpn,bqh->bqhp", Cq, h, torch.exp(cum))
+        Lmat = torch.exp(ssm._segsum(aq.transpose(1, 2)))
+        y_diag = torch.einsum("bqs,bhqs,bsh,bshp->bqhp", torch.einsum("bqn,bsn->bqs", Cq, Bq), Lmat, dtq, xq)
+        decay_tail = torch.exp(cum[:, -1:, :] - cum)
+        h = h * torch.exp(cum[:, -1, :])[:, :, None, None] + torch.einsum("bqn,bqh,bqhp->bhpn", Bq, dtq * decay_tail,
+                                                                          xq)
+        ys.append(y_off + y_diag)
+    y = torch.stack(ys, dim=1).reshape(2, S, H, P_) + x * p["D_skip"][None, None, :, None]
+    y = common.rmsnorm(y.reshape(2, S, d_inner) * common.silu(z), p["norm"], c32.norm_eps)
+    assert torch.equal(ssm.ssd_forward(p, c32, u), y @ p["w_out"])
 
 
 def test_merge_heads_gathers_a_sharded_head_dim():
