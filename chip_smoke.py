@@ -2626,12 +2626,15 @@ def train_qwen_phase(smi: str) -> None:
 #: tensor-parallel (2 microbatches of 1, as 10b), data-parallel and both
 #: (2 microbatches of 2, one sequence per data shard in each),
 #: data-parallel in one microbatch of 2 (the embedding's backward on
-#: local blocks, ``common.embed_rows``), and Mixtral's MoE at full width
-#: with 2 layers, tensor- and data-parallel
+#: local blocks, ``common.embed_rows``), on a model axis of 16, which does
+#: not divide its 8 KV heads (each pair of chips runs one KV head's 5
+#: query heads, ``attention._head_groups``), and Mixtral's MoE at full
+#: width with 2 layers, tensor- and data-parallel
 TRAIN_SHARDED = (("qwen3-14b", TRAIN_QWEN["n_layers"], (1, 2), 2, 2),
                  ("qwen3-14b", TRAIN_QWEN["n_layers"], (2, 1), 4, 2),
                  ("qwen3-14b", TRAIN_QWEN["n_layers"], (2, 1), 2, 1),
                  ("qwen3-14b", TRAIN_QWEN["n_layers"], (2, 2), 4, 2),
+                 ("qwen3-14b", TRAIN_QWEN["n_layers"], (1, 16), 2, 2),
                  ("mixtral-8x7b", 2, (1, 2), 2, 2),
                  ("mixtral-8x7b", 2, (2, 1), 4, 2))
 

@@ -14,16 +14,19 @@ read of the cache length on the host.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.tensor import DTensor
 
 from .._device import make_generator, resolve_device
 from .common import (
+    FSDP_AXES,
     ModelConfig,
     apply_rope,
+    axis_gather,
+    axis_sum,
     constrain_batch,
     einsum,
     even_heads,
@@ -35,6 +38,7 @@ from .common import (
     model_block,
     rmsnorm,
     row_block,
+    split_axis,
     split_last,
     summed,
     summed_grad,
@@ -114,42 +118,228 @@ def _mask(
     return m
 
 
-def _sdpa(q, k, v, mask):
-    """q: (B,S,H,hd)  k/v: (B,T,K,hd)  mask: (S,T) or (B,S,T).  GQA grouped."""
-    B, S, H, hd = q.shape
-    K = k.shape[2]
-    G = H // K
-    if K == 1 and isinstance(k, DTensor) and not any(p.is_shard(d) for p in k.placements for d in (1, 2, 3)):
-        heads = model_block(q, 2)
-        if heads.placements != q.placements:
-            return _mqa_local(heads, k, v, mask)
-    q = even_heads(q, 2, K).reshape(B, S, K, G, hd)
+def _probs(q, k, mask):
+    """The softmax of the masked, scaled scores, (B, K, G, S, T) in float32:
+    q (B, S, K, G, hd), k (B, T, K, hd), mask (S, T) or (B, S, T)."""
     scores = einsum("bskgh,btkh->bkgst", q, k).float()
     # jnp.sqrt(hd) is a float32 sqrt; a float64 sqrt rounds to the same float32
-    scores = scores / float(np.float32(np.sqrt(hd)))
+    scores = scores / float(np.float32(np.sqrt(q.shape[-1])))
     if mask.ndim == 2:
         mask_b = mask[None, None, None]
     else:
         mask_b = mask[:, None, None]
     scores = torch.where(mask_b, scores, NEG_INF)
-    probs = _softmax(scores).to(v.dtype)
+    return _softmax(scores)
+
+
+def _sdpa(q, k, v, mask):
+    """q: (B,S,H,hd)  k/v: (B,T,K,hd)  mask: (S,T) or (B,S,T).  GQA grouped.
+    Where the KV heads are whole on each chip of a model axis, each chip
+    runs its share of the heads (:func:`_head_groups`)."""
+    groups = _head_groups(q, k, v)
+    if groups is not None:
+        mask = _whole(mask)
+        return groups.attend(q, k, v, lambda q, k, v: _sdpa(q, k, v, mask), lambda q, k: _probs(q, k, mask))
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    q = even_heads(q, 2, K).reshape(B, S, K, G, hd)
+    probs = _probs(q, k, mask).to(v.dtype)
     out = einsum("bkgst,btkh->bskgh", probs, v)
     return whole_grad(out.reshape(B, S, H, hd), 2)
 
 
-def _mqa_local(q: DTensor, k: DTensor, v: DTensor, mask) -> DTensor:
-    """Multi-query attention (one KV head, whole on every chip) on each
-    chip's block of the query heads, as the reference's partitioner runs
-    it: :func:`_sdpa` on the local blocks, ``q`` 's heads split over the
-    model axis (:func:`common.model_block`), and the KV's gradients, each
-    chip's heads' share, all-reduced where they are made
-    (:func:`common.summed_grad`).  On local blocks because torch 2.11's
-    DTensor cannot flatten the product's batch dims with the heads split
-    inside them.  Returns (B, S, H, hd) laid out as ``q``."""
-    grad = [Partial() if p.is_shard(2) else p for p in q.placements]
-    out = _sdpa(q.to_local(), summed_grad(k).to_local(grad_placements=grad),
-                summed_grad(v).to_local(grad_placements=grad), mask)
-    return DTensor.from_local(out, q.device_mesh, q.placements, run_check=False, shape=q.shape, stride=q.stride())
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole as a local tensor; a plain tensor itself."""
+    return gathered(t).to_local() if isinstance(t, DTensor) else t
+
+
+class _HeadGroups(NamedTuple):
+    """Which heads of attention each chip of the model axis runs, as the
+    reference's partitioner splits them, where k and v reach attention
+    whole on each chip of that axis (replicated: pinned to the batch axes,
+    or their heads gathered because the axis does not divide them).  With
+    M chips on the axis, K KV heads and G query heads in each KV head's
+    group:
+
+    * K divisible by M: each chip its K/M KV heads and their groups;
+    * M divisible by K, ``r`` = M/K chips to a KV head: when G is
+      divisible by r, each chip its KV head and its G/r heads of the
+      group, the KV's gradients summed over the r chips (qwen2-vl's 2 KV
+      heads on a model axis of 4: an all-reduce over each pair); when r is
+      divisible by G (2 KV heads on 8 chips), each chip its group's query
+      head ``g`` and its block ``b`` of the head dim for the probabilities
+      times v, the KV's gradients summed over the group's G heads; else
+      each chip its whole group (10 heads and 2 KV heads on 4 chips: 5 on
+      each chip of a pair), nothing summed;
+    * else (phi3's 10 KV heads on 16 chips) None: the reference's
+      partitioner runs such attention whole on each chip, and so does the
+      port.
+
+    ``mesh`` and ``axis``: the model axis; ``heads`` and ``kv``: the chip's
+    query and KV heads, (first, count); ``sums``: the ``(mesh, axis)``
+    groups the KV's gradients are summed over, the axis split into its
+    parts (:func:`common.split_axis`); ``gathers``: the ``(mesh, axis,
+    dim)`` groups that gather the KV's gradients whole; ``q_gathers``:
+    those that gather q's gradient whole, None where the chip's heads are
+    q's block over the axis (:func:`common.model_block`, its output laid
+    out so); ``block``: ``(first, count)`` of the head dim's block, with
+    the ``(mesh, axis, dim)`` groups that gather the gradient of v's block
+    after ``sums``."""
+
+    mesh: Any
+    axis: int
+    heads: Tuple[int, int]
+    kv: Tuple[int, int]
+    sums: Sequence
+    gathers: Sequence
+    q_gathers: Optional[Sequence]
+    block: Optional[Tuple[Tuple[int, int], Sequence]] = None
+
+    def attend(self, q: DTensor, k: DTensor, v: DTensor, attend, probs) -> DTensor:
+        """``attend`` (plain attention of local tensors) on the chip's heads,
+        or, with a ``block``, ``probs`` (the probabilities of local
+        tensors) times v's block; (B, S, H, hd) laid out as q: its heads'
+        block, else whole."""
+        kl = _Take.apply(k.to_local(), ((2, *self.kv),), self.sums, self.gathers)
+        if self.q_gathers is None:
+            qb = model_block(q, 2)
+            out = attend(qb.to_local(), kl, _Take.apply(v.to_local(), ((2, *self.kv),), self.sums, self.gathers))
+            return _from_local(out, qb)
+        ql = _Take.apply(q.to_local(), ((2, *self.heads),), (), self.q_gathers)
+        if self.block is None:
+            vl = _Take.apply(v.to_local(), ((2, *self.kv),), self.sums, self.gathers)
+            out = _Gather.apply(attend(ql, kl, vl), self.gathers, 2)
+        else:
+            (first, n), v_gathers = self.block
+            vb = _Take.apply(v.to_local(), ((2, *self.kv), (3, first, n)), self.sums, v_gathers)
+            B, S, _, hd = ql.shape
+            p = probs(ql.reshape(B, S, 1, 1, hd), kl).to(v.dtype)
+            whole_v = v.to_local().detach().narrow(2, *self.kv)
+            out = _HeadBlock.apply(p, vb, whole_v, self.mesh, self.axis, self.heads[0], first)
+        return _from_local(out, q)
+
+
+def _from_local(out: torch.Tensor, like: DTensor) -> DTensor:
+    """A local (B, S, H, hd) block as a DTensor placed as ``like``."""
+    B, S, H, hd = like.shape
+    return DTensor.from_local(out, like.device_mesh, like.placements, run_check=False, shape=like.shape,
+                              stride=(S * H * hd, H * hd, hd, 1))
+
+
+def _head_groups(q, k, v, flash: bool = False) -> Optional[_HeadGroups]:
+    """The chip's share of attention's heads (:class:`_HeadGroups`) where q,
+    k and v are DTensors whose KV heads are whole on each chip of one model
+    axis; None where they are not (plain tensors, a cache split on its
+    slots or head dim), or where the reference's partitioner runs such
+    heads whole; ``flash``: the flash path, which splits no head dim."""
+    if not all(isinstance(t, DTensor) for t in (q, k, v)) or k.placements != v.placements or \
+            any(p.is_shard(d) for p in k.placements for d in (1, 2, 3)) or \
+            any(p.is_shard(d) for p in q.placements for d in (1, 3)):
+        return None
+    mesh = k.device_mesh
+    names = mesh.mesh_dim_names or ()
+    tp = [i for i, a in enumerate(names) if a not in FSDP_AXES and mesh.size(i) > 1]
+    if len(tp) != 1 or any(a != b for i, (a, b) in enumerate(zip(q.placements, k.placements)) if i != tp[0]):
+        return None
+    axis = tp[0]
+    M, H, K = mesh.size(axis), q.shape[2], k.shape[2]
+    G, m = H // K, mesh.get_local_rank(axis)
+    if K % M == 0:
+        n = K // M
+        return _HeadGroups(mesh, axis, (m * H // M, H // M), (m * n, n), (), ((mesh, axis, 2),), None)
+    if M % K:
+        return None
+    r = M // K
+    kh, j = divmod(m, r)
+    if G % r == 0:
+        if K == 1:
+            return _HeadGroups(mesh, axis, (m * G // r, G // r), (0, 1), ((mesh, axis),), (), None)
+        sub = split_axis(mesh, axis, (K, r))
+        return _HeadGroups(mesh, axis, (m * G // r, G // r), (kh, 1), ((sub, axis + 1),), ((sub, axis, 2),), None)
+    if not q.placements[axis].is_replicate() or K == 1 and r % G:
+        return None
+    if r % G:
+        sub = split_axis(mesh, axis, (K, r))
+        gathers = ((sub, axis, 2),)
+        return _HeadGroups(mesh, axis, (kh * G, G), (kh, 1), (), gathers, gathers)
+    if flash:
+        return None
+    c = r // G
+    g, b = divmod(j, c)
+    hd = k.shape[3]
+    sub = split_axis(mesh, axis, (K, G, c))
+    gathers = ((sub, axis, 2),) if K > 1 else ()
+    return _HeadGroups(mesh, axis, (kh * G + g, 1), (kh, 1), ((sub, axis + 1),), gathers,
+                       ((sub, axis + 1, 2), *gathers), ((b * hd // c, hd // c), ((sub, axis + 2, 3), *gathers)))
+
+
+class _Take(torch.autograd.Function):
+    """A local tensor's block (``narrows``: ``(dim, first, count)`` each);
+    backward, the block's gradient summed over ``sums`` (the chips that
+    hold the same block for other query heads), then gathered whole over
+    ``gathers`` (the innermost first), the same on every chip."""
+
+    @staticmethod
+    def forward(ctx, x, narrows, sums, gathers):
+        ctx.sums, ctx.gathers = sums, gathers
+        for dim, first, n in narrows:
+            x = x.narrow(dim, first, n)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        for mesh, axis in ctx.sums:
+            g = axis_sum(g.contiguous(), mesh, axis)
+        for mesh, axis, dim in ctx.gathers:
+            g = axis_gather(g.contiguous(), mesh, axis, dim)
+        return g, None, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """Each chip's block gathered along ``dim`` over ``gathers`` (the
+    innermost first); backward, the chip's block of the gradient, which is
+    whole on every chip."""
+
+    @staticmethod
+    def forward(ctx, t, gathers, dim):
+        ctx.dim, ctx.n, first = dim, t.shape[dim], 0
+        for mesh, axis, d in gathers:
+            t = axis_gather(t.contiguous(), mesh, axis, d)
+        for mesh, axis, _ in reversed(gathers):
+            first = first * mesh.size(axis) + mesh.get_local_rank(axis)
+        ctx.first = first * ctx.n
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.first, ctx.n), None, None
+
+
+class _HeadBlock(torch.autograd.Function):
+    """A chip's query head ``head`` times its block of v's head dim (the
+    probabilities (B, 1, 1, S, T) times ``vb`` (B, T, 1, hd / c)), gathered
+    over the model axis into the heads (B, S, H, hd), whole on every chip
+    (the chips' blocks are the merged heads' in order); backward, from the
+    whole gradient the head's: the probabilities' gradient against the
+    whole KV head ``v`` (B, T, 1, hd), v's block's against the block."""
+
+    @staticmethod
+    def forward(ctx, probs, vb, v, mesh, axis, head, first):
+        ctx.save_for_backward(probs, v)
+        ctx.head, ctx.first, ctx.n = head, first, vb.shape[-1]
+        B, S = probs.shape[0], probs.shape[3]
+        out = torch.einsum("bkgst,btkh->bskgh", probs, vb).reshape(B, S, -1)
+        out = axis_gather(out, mesh, axis, -1)
+        return out.view(B, S, -1, v.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        probs, v = ctx.saved_tensors
+        dout = g[:, :, ctx.head, None, None]  # (B, S, 1, 1, hd)
+        dprobs = torch.einsum("bskgh,btkh->bkgst", dout, v)
+        dvb = torch.einsum("bkgst,bskgh->btkh", probs, dout.narrow(-1, ctx.first, ctx.n))
+        return dprobs, dvb, None, None, None, None, None
 
 
 def _softmax(scores: torch.Tensor) -> torch.Tensor:
@@ -190,6 +380,10 @@ def _flash_sdpa(
     the blocks a query block can reach, as the reference's: ``first`` is a
     host int (the loop index is one), so the restriction costs no sync.
     Plain causal attention still visits every block (mask only)."""
+    groups = _head_groups(q, k, v, flash=True)
+    if groups is not None:
+        return groups.attend(q, k, v, lambda q, k, v: _flash_sdpa(
+            q, k, v, causal=causal, window=window, chunk=chunk, q_block=q_block, kv_block=kv_block), None)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K

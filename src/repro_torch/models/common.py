@@ -43,12 +43,16 @@ __all__ = [
     "promoted",
     "fsdp_gathered",
     "gathered",
+    "laid_out_as",
     "local_block",
     "model_block",
     "split_last",
     "whole_grad",
     "summed",
     "summed_grad",
+    "axis_sum",
+    "axis_gather",
+    "split_axis",
     "row_block",
     "mm",
     "einsum",
@@ -284,37 +288,110 @@ def whole_grad(x: torch.Tensor, dim: int) -> torch.Tensor:
     return summed_grad(x)
 
 
+def _summed_to(x: DTensor, placements) -> DTensor:
+    """``x`` redistributed to ``placements``, a partial sum of a 16-bit
+    ``x`` summed in float32 and cast back, as the reference's lowering
+    carries its collectives: each chip's bf16 partial sum is not rounded
+    again before the sum (four chips' rounded bf16 partials miss the bf16
+    step's own bound, mamba2's train step on (1, 4))."""
+    if x.dtype in (torch.bfloat16, torch.float16) and any(p.is_partial() for p in x.placements):
+        return x.float().redistribute(x.device_mesh, placements).to(x.dtype)
+    return x.redistribute(x.device_mesh, placements)
+
+
 def summed(x: torch.Tensor) -> torch.Tensor:
     """A product's partial sums completed where it is made: a DTensor with
     ``Partial`` placements (a contraction over a sharded dim) is
-    all-reduced to ``Replicate`` on those mesh axes, as the reference's
-    partitioner reduces a dot's output.  Left partial, DTensor carries the
-    sums into the residual stream and redistributes them again at every
-    non-linear op that meets them.  The identity on a plain tensor."""
+    all-reduced to ``Replicate`` on those mesh axes (in float32,
+    :func:`_summed_to`), as the reference's partitioner reduces a dot's
+    output.  Left partial, DTensor carries the sums into the residual
+    stream and redistributes them again at every non-linear op that meets
+    them.  The identity on a plain tensor."""
     if isinstance(x, DTensor) and any(p.is_partial() for p in x.placements):
-        return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p for p in x.placements])
+        return _summed_to(x, [Replicate() if p.is_partial() else p for p in x.placements])
     return x
+
+
+class _SummedGrad(torch.autograd.Function):
+    """:func:`summed_grad` on a DTensor: the identity forward; backward,
+    the gradient redistributed to the input's placements (:func:`_summed_to`)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the gradient of a partial sum is whole, as DTensor's redistribute has it
+        want = tuple(Replicate() if p.is_partial() else p for p in ctx.placements)
+        if not isinstance(g, DTensor) or (g.device_mesh, g.placements) == (ctx.mesh, want):
+            return g
+        return _summed_to(g, want)
 
 
 def summed_grad(x: torch.Tensor) -> torch.Tensor:
     """``x`` as it is (no collective forward), its gradient completed where
-    it is made: DTensor's redistribute to ``x`` 's own placements, whose
-    backward brings the gradient back to them, so a ``Partial`` sum over
-    the model axis is all-reduced to ``Replicate`` there.  :func:`summed`
-    's rule applied to the gradient, as the reference's partitioner
-    reduces a dot's partial output backward as well as forward.  For the
-    input of a column-parallel product (``wq``, ``wk``, ``wv``,
-    ``w_gate``, ``w_up``, ``lm_head``), replicated over the model axis,
-    whose gradient the product returns as a partial sum: one all-reduce
-    at the residual's width (B·S·D) per product, as the reference's
-    lowering on ``Auto`` mesh axes all-reduces each product's input
-    gradient as its own operand (q, k and v's three in one combined
-    all-reduce, gate and up's two in another; held by
-    ``tests/test_torch_partition.py``).  Left partial, DTensor
-    carries the sums through the norm and the residual into the next
-    product's backward, which reduce-scatters them at that product's
+    it is made: brought back to ``x`` 's own placements, so a ``Partial``
+    sum over the model axis is all-reduced to ``Replicate`` there (in
+    float32, :func:`_summed_to`).  :func:`summed` 's rule applied to the
+    gradient, as the reference's partitioner reduces a dot's partial
+    output backward as well as forward.  For the input of a
+    column-parallel product (``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up``,
+    ``lm_head``), replicated over the model axis, whose gradient the
+    product returns as a partial sum: one all-reduce at the residual's
+    width (B·S·D) per product, as the reference's lowering on ``Auto``
+    mesh axes all-reduces each product's input gradient as its own operand
+    (q, k and v's three in one combined all-reduce, gate and up's two in
+    another; held by ``tests/test_torch_partition.py``).  Left partial,
+    DTensor carries the sums through the norm and the residual into the
+    next product's backward, which reduce-scatters them at that product's
     width.  The identity on a plain tensor."""
-    return x.redistribute(x.device_mesh, x.placements) if isinstance(x, DTensor) else x
+    return _SummedGrad.apply(x) if isinstance(x, DTensor) else x
+
+
+def axis_sum(t: torch.Tensor, mesh, axis: int) -> torch.Tensor:
+    """Each chip's partial sums ``t`` (a local tensor) summed over the mesh
+    axis ``axis`` (an all-reduce on its group; 16-bit sums in float32,
+    :func:`_summed_to`)."""
+    partial = [Replicate()] * mesh.ndim
+    partial[axis] = Partial()
+    return _summed_to(DTensor.from_local(t, mesh, partial, run_check=False),
+                      [Replicate()] * mesh.ndim).to_local()
+
+
+def axis_gather(t: torch.Tensor, mesh, axis: int, dim: int) -> torch.Tensor:
+    """Each chip's block ``t`` (a local tensor) gathered along ``dim`` over
+    the mesh axis ``axis`` in the order of its chips (an all-gather on its
+    group)."""
+    pl = [Replicate()] * mesh.ndim
+    pl[axis] = Shard(dim % t.ndim)
+    return DTensor.from_local(t, mesh, pl, run_check=False).redistribute(
+        mesh, [Replicate()] * mesh.ndim).to_local()
+
+
+def split_axis(mesh, axis: int, sizes: Sequence[int]):
+    """A ``DeviceMesh`` over the same ranks as ``mesh`` with its axis
+    ``axis`` split into sub-axes of ``sizes`` (the first major), named
+    ``"<axis>.0"``, ``"<axis>.1"``, ...: its groups are parts of that axis
+    (two KV heads over a model axis of 4 each on a pair of its chips),
+    which no placement on ``mesh`` can name.  Made once per mesh and
+    process group (every rank makes it at the same point of the step) and
+    kept on the mesh: DTensor's cached shardings can hand back a mesh of
+    an earlier group of the same shape, whose split is made anew."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    cache = mesh.__dict__.setdefault("_split_axes", {})
+    key = (axis, tuple(sizes))
+    hit = cache.get(key)
+    if hit is None or hit[0] is not dist.group.WORLD:
+        names = list(mesh.mesh_dim_names)
+        shape = list(mesh.mesh.shape)
+        hit = cache[key] = (dist.group.WORLD, DeviceMesh(
+            mesh.device_type, mesh.mesh.reshape(*shape[:axis], *sizes, *shape[axis + 1:]),
+            mesh_dim_names=(*names[:axis], *(f"{names[axis]}.{i}" for i in range(len(sizes))), *names[axis + 1:])))
+    return hit[1]
 
 
 def local_block(x: DTensor, dim: int, *others: DTensor):
@@ -362,6 +439,20 @@ def even_heads(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
         if n % math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements) if p.is_shard(d)):
             x = gathered(x, d)
     return x
+
+
+def laid_out_as(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` placed as ``like`` (a tensor of the same shape on the same
+    mesh): where their placements differ, gathered whole first (the
+    all-gathers of :func:`gathered`) and then sliced to ``like`` 's blocks
+    (no collective), one path on every torch version, where DTensor's own
+    redistribution between two shardings picks its path by version (the
+    RG-LRU's decode state of the layers after the stacked groups, which
+    the decode state's rule shards on the batch axes along its width).
+    The identity on plain tensors and where the placements agree."""
+    if not (isinstance(x, DTensor) and isinstance(like, DTensor)) or x.placements == like.placements:
+        return x
+    return gathered(x).redistribute(like.device_mesh, like.placements)
 
 
 def row_block(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,8 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from .._device import make_generator, resolve_device
-from .common import ModelConfig, gathered, gelu_tanh, init_dense, mm, param_device, sigmoid, softplus, summed_grad
+from .common import (ModelConfig, gathered, gelu_tanh, init_dense, laid_out_as, mm, model_block, param_device,
+                     sigmoid, softplus, summed_grad)
 
 __all__ = [
     "init_rglru_block",
@@ -78,9 +79,11 @@ def init_rglru_block(key, cfg: ModelConfig, *, device=None):
 def _gates(p, x):
     """x: (..., W) post-conv activations -> (a_t, gated input), float32."""
     # each product's partial sums completed before its bias (``mm``): torch
-    # 2.11 cannot add a bias sharded like the product's columns to them
-    r = sigmoid(mm(x.float(), p["w_a"].float()) + p["b_a"])
-    i = sigmoid(mm(x.float(), p["w_x"].float()) + p["b_x"])
+    # 2.11 cannot add a bias sharded like the product's columns to them;
+    # then sliced to the bias's columns (``model_block``), where 2.13 puts
+    # the sum and 2.11 would gather the bias and run the gates whole
+    r = sigmoid(model_block(mm(x.float(), p["w_a"].float()), -1) + p["b_a"])
+    i = sigmoid(model_block(mm(x.float(), p["w_x"].float()), -1) + p["b_x"])
     log_a = -_C * softplus(p["lam"]) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * x.float())
@@ -178,6 +181,6 @@ def rglru_decode_step(p, cfg: ModelConfig, u: torch.Tensor, state: RGLRUState):
     gate = gelu_tanh(mm(u, p["w_gate_branch"]))  # (B,1,W)
     x, new_tail = _conv(mm(u, p["w_rec_branch"]), p["conv_w"], tail=state.conv)
     a, b = _gates(p, x[:, 0])  # (B,W)
-    h = a * state.h + b
+    h = a * laid_out_as(state.h, a) + b
     y = h[:, None, :].to(u.dtype) * gate
     return mm(y, p["w_out"]), RGLRUState(h=h, conv=new_tail.float())

@@ -15,12 +15,14 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Shard
 
 from .._device import make_generator, resolve_device
 from .common import (
     FSDP_AXES,
     ModelConfig,
+    axis_gather,
+    axis_sum,
     constrain_batch,
     einsum,
     gathered,
@@ -229,15 +231,6 @@ def _heads_axis(t, H: int, N: int):
     return axes[0]
 
 
-def _all_reduce(t: torch.Tensor, mesh, axis: int) -> torch.Tensor:
-    """Each chip's partial sums ``t`` (a local tensor) summed over the mesh
-    axis ``axis``."""
-    partial = [Replicate()] * mesh.ndim
-    partial[axis] = Partial()
-    return DTensor.from_local(t, mesh, partial, run_check=False).redistribute(
-        mesh, [Replicate()] * mesh.ndim).to_local()
-
-
 class _Total(torch.autograd.Function):
     """A partial sum over the model axis completed there (an all-reduce),
     and its gradient too: each chip's consumers are its own heads, so each
@@ -246,11 +239,11 @@ class _Total(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh, axis):
         ctx.mesh, ctx.axis = mesh, axis
-        return _all_reduce(t, mesh, axis)
+        return axis_sum(t, mesh, axis)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, ctx.mesh, ctx.axis), None, None
+        return axis_sum(g, ctx.mesh, ctx.axis), None, None
 
 
 class _Whole(torch.autograd.Function):
@@ -261,14 +254,11 @@ class _Whole(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh, axis):
         ctx.mesh, ctx.axis, ctx.n = mesh, axis, t.shape[-1]
-        pl = [Replicate()] * mesh.ndim
-        pl[axis] = Shard(t.ndim - 1)
-        return DTensor.from_local(t, mesh, pl, run_check=False).redistribute(
-            mesh, [Replicate()] * mesh.ndim).to_local()
+        return axis_gather(t, mesh, axis, -1)
 
     @staticmethod
     def backward(ctx, g):
-        whole = _all_reduce(g, ctx.mesh, ctx.axis)
+        whole = axis_sum(g, ctx.mesh, ctx.axis)
         return whole.narrow(-1, ctx.mesh.get_local_rank(ctx.axis) * ctx.n, ctx.n), None, None
 
 

@@ -34,7 +34,9 @@ count it); ``flops_per_chip``: the compiled program's ``cost_analysis()``
 FLOPs (a scan's body counted once); and ``wo_dots``: the result and
 operand shapes of each forward dot that the reference's ``... @ p["wo"]``
 lowers to (found by the HLO's stack frames; a backward dot's innermost
-frame is its remat's checkpoint); ``all_reduce_operands``: the
+frame is its remat's checkpoint); ``batched_dot_flops``: the FLOPs of its
+dots with batch dims (attention's products) per loop trip;
+``all_reduce_operands``: the
 all-reduces' operands over one step, ``{axes: {elements: count}}``, each
 counted per loop trip and keyed by the mesh axes its replica group spans
 (``"model"``, ``"data"``, ``"model[2]"`` for a group of 2 chips of the
@@ -178,6 +180,26 @@ def loop_trips(hlo_text: str) -> dict:
         return trips[c]
 
     return {c: (times(c), lines) for c, lines in comps.items()}
+
+
+def batched_dot_flops(hlo_text: str) -> int:
+    """The FLOPs of the module's dots with batch dims (attention's scores
+    and their product with v, forward and backward, and any other batched
+    product), each counted as often as the loops around it run:
+    2 x its result's elements x its contraction's size."""
+    insts = _instructions(hlo_text)
+    total = 0
+    for times, lines in loop_trips(hlo_text).values():
+        for line in lines:
+            m = re.match(r"\s*(?:ROOT )?%(\S+) = \S+ dot\(", line)
+            if not m or "lhs_batch_dims" not in insts[m.group(1)][3]:
+                continue
+            result, _, args, rest = insts[m.group(1)]
+            lhs = [int(d) for d in re.search(r"\[([\d,]*)\]", insts[args[0]][0]).group(1).split(",")]
+            dims = re.search(r"lhs_contracting_dims=\{([\d,]*)\}", rest).group(1).split(",")
+            out = re.search(r"\[([\d,]*)\]", result).group(1).split(",")
+            total += times * 2 * int(np.prod([int(d) for d in out])) * int(np.prod([lhs[int(d)] for d in dims]))
+    return total
 
 
 def _elements(by_dtype: dict) -> dict:
@@ -343,6 +365,7 @@ def lower(arch: str, mode: str, mesh_shape, B: int, S: int, scaled=None, axes=No
             "elements": _elements(by_dtype), **per_trip(text),
             "temp_bytes": compiled.memory_analysis().temp_size_in_bytes,
             "flops_per_chip": compiled.cost_analysis()["flops"], "wo_dots": wo_dots(text),
+            "batched_dot_flops": batched_dot_flops(text),
             "all_reduce_operands": operands, "dot_all_reduces": dots}
 
 

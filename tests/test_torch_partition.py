@@ -47,6 +47,7 @@ local ops and collectives add up to.
 """
 import collections
 import json
+import math
 import os
 import subprocess
 import sys
@@ -96,14 +97,19 @@ UNEVEN_WIDE = {"d_model": 1280, "n_heads": 10, "n_kv_heads": 2, "head_dim": 128,
 UNEVEN_WIDE_CELLS = [("qwen3-14b", m, (2, 4), "u1280") for m in ("prefill", "train")]
 #: the uneven train cell, whose ``wo`` dot the tests read
 WO_CELL = ("qwen3-14b", "train", (2, 4), "u1280")
+#: qwen3-14b's SMOKE config with 20 query heads over 5 KV heads, on (1, 8):
+#: phi3-medium-14b's 10 KV heads on a model axis of 16, which neither
+#: divides the other, at SMOKE width (a cell ``(arch, mode, mesh, "k5")``)
+KV5 = {"n_heads": 20, "n_kv_heads": 5}
+KV5_CELLS = [("qwen3-14b", m, (1, 8), "k5") for m in ("prefill", "train")]
 #: every cell the oracle lowers on ``Auto`` mesh axes, the yardstick
-CELLS = ORACLE_CELLS + WIDE_CELLS + UNEVEN_WIDE_CELLS
+CELLS = ORACLE_CELLS + WIDE_CELLS + UNEVEN_WIDE_CELLS + KV5_CELLS
 #: the one cell the oracle also lowers on the default ``Explicit`` axes
 #: (a key ``cell + ("explicit",)``): the replicated step, whose ``wo`` dot
 #: runs whole
 EXPLICIT_CELLS = [WO_CELL]
 #: each width's ``ModelConfig.scaled`` overrides, batch and tokens
-WIDTHS = {"d1024": (WIDE, WIDE_B, WIDE_S), "u1280": (UNEVEN_WIDE, WIDE_B, WIDE_S)}
+WIDTHS = {"d1024": (WIDE, WIDE_B, WIDE_S), "u1280": (UNEVEN_WIDE, WIDE_B, WIDE_S), "k5": (KV5, B, S)}
 
 
 def _short(monkeypatch_ctx, seq: int = S) -> None:
@@ -198,7 +204,7 @@ ZERO3 = {("qwen3-14b", "train", (8, 1)): 1.00, ("mamba2-780m", "train", (8, 1)):
 _OFF_ONE_CHIP = [c for c in ORACLE_CELLS if c[2] not in ((1, 1), (1, 8))]
 BANDED = [pytest.param(c, id=f"{c[0]}-{c[1]}-mesh{i}") for i, c in enumerate(_OFF_ONE_CHIP)] + \
     [pytest.param(c, id=f"{c[0]}-{c[1]}-1x8") for c in ORACLE_CELLS if c[2] == (1, 8)] + \
-    [pytest.param(c, id=f"{c[0]}-{c[1]}-{c[2][0]}x{c[2][1]}-{c[3]}") for c in WIDE_CELLS + UNEVEN_WIDE_CELLS]
+    [pytest.param(c, id=f"{c[0]}-{c[1]}-{c[2][0]}x{c[2][1]}-{c[3]}") for c in WIDE_CELLS + UNEVEN_WIDE_CELLS + KV5_CELLS]
 
 
 @pytest.mark.parametrize("cell", BANDED)
@@ -467,7 +473,8 @@ def test_column_parallel_input_gradient_completed_by_hand():
     (32, 48) sharded on its columns, bf16.  Forward: no collective, each
     chip its 24 columns of y.  Backward: dx = dy w^T contracts over the
     sharded columns, a partial sum that ``summed_grad`` all-reduces once,
-    x's whole B·S·D = 4·8·32 elements, to ``Replicate`` over ``model``
+    x's whole B·S·D = 4·8·32 elements, summed in float32 (4 bytes each, as
+    the reference's lowering sums them), to ``Replicate`` over ``model``
     (without the form dx stays ``Partial``); dw = x^T dy lands on w's
     shard with no collective.  Each of the three products is half the
     whole."""
@@ -497,7 +504,8 @@ def test_column_parallel_input_gradient_completed_by_hand():
         _, partial = dryrun.count_step(dryrun.StepCount(), lambda x, w: step(x, w, lambda t: t), args())
         assert partial.placements == (Replicate(), Partial())
     assert not any(v for k, v in fwd.items() if k.endswith("_count"))
-    assert counts["all-reduce_count"] == 1 and counts["all-reduce_bytes"] == 4 * 8 * 32 * 2
+    assert counts["all-reduce_count"] == 1 and counts["all-reduce_bytes"] == 4 * 8 * 32 * 4
+    assert counts["all-reduce_elements"] == 4 * 8 * 32 and dx.dtype == torch.bfloat16
     assert sum(counts[f"{k}_count"] for k in dryrun.COLLECTIVE_KINDS) == 1
     assert counts["flops"] == 3 * 2 * 4 * 8 * 32 * 48 // 2  # y = x w, dx = dy w^T, dw = x^T dy
 
@@ -566,26 +574,72 @@ def test_wo_runs_on_its_row_shard_as_the_reference_lowers_it(oracle):
 
 class _AllReducesByAxis(dryrun.StepCount):
     """``StepCount`` that also counts each all-reduce's operand under the
-    mesh axis of its group and its elements (``"all-reduce:<axis>:<n>"``,
-    for the sizes ``n`` given; any other under ``"...:other"``), and the
-    elements of all of them (``"all-reduce:elements"``)."""
+    mesh axis of its group, or ``"model[n]"`` for a group of ``n`` chips of
+    the model axis (attention's head groups, ``common.split_axis``, named as
+    ``tests/partition_oracle.py`` names the reference's), and its elements
+    (``"all-reduce:<axis>:<n>"``, for the sizes ``n`` given; any other
+    under ``"...:other"``), and the elements of all of them
+    (``"all-reduce:elements"``)."""
 
-    def __init__(self, groups, sizes):
-        self.groups, self.sizes = groups, sizes  # {group name: axis}, [n]
+    def __init__(self, dm, sizes):
+        self.groups = {dm.get_group(i).group_name: a for i, a in enumerate(dm.mesh_dim_names)}
+        m = dm.size(dm.mesh_dim_names.index("model"))
+        self.axes = [*dm.mesh_dim_names, *(f"model[{d}]" for d in range(2, m) if m % d == 0)]
+        self.sizes = sizes
         super().__init__()
 
     def start(self, args):
         super().start(args)
-        self.c.update({f"all-reduce:{a}:{n}": 0 for a in set(self.groups.values())
-                       for n in [*self.sizes, "other"]})
+        self.c.update({f"all-reduce:{a}:{n}": 0 for a in self.axes for n in [*self.sizes, "other"]})
         self.c["all-reduce:elements"] = 0
 
     def _local_op(self, func, args, kwargs):
         if dryrun.collective_kind(func) == "all-reduce":
             n = dryrun._local(args[0]).numel()
-            self.c[f"all-reduce:{self.groups[args[2]]}:{n if n in self.sizes else 'other'}"] += 1
+            axis = self.groups.get(args[2]) or f"model[{dist.distributed_c10d._resolve_process_group(args[2]).size()}]"
+            self.c[f"all-reduce:{axis}:{n if n in self.sizes else 'other'}"] += 1
             self.c["all-reduce:elements"] += n
         return super()._local_op(func, args, kwargs)
+
+
+def _model_axes(axis: str) -> bool:
+    """The model axis or a part of it (``"model[2]"``)."""
+    return axis == "model" or axis.startswith("model[")
+
+
+def port_model_axis_all_reduces(cell, keys):
+    """The port's all-reduces over the model axis and its parts over the
+    cell's whole step: ``{(axes, elements): count}`` for the ``keys``
+    given, and the count of any other."""
+    cfg, b, s = _size(cell)
+    mesh = make_mesh(cell[2], ("data", "model"), device="meta")
+    with pytest.MonkeyPatch.context() as mp, fake_device_mesh(mesh) as dm:
+        _short(mp, s)
+        counter = _AllReducesByAxis(dm, sorted({n for _, n in keys}))
+        counts, _ = dryrun.count_step(counter, *dryrun.cell_step(cfg, SHAPE_OF[cell[1]], mesh, dm,
+                                                                 batch_override=b))
+    port = collections.Counter({(a, n): counts[f"all-reduce:{a}:{n}"] for a, n in keys
+                                if counts[f"all-reduce:{a}:{n}"]})
+    other = sum(counts[f"all-reduce:{a}:other"] for a in counter.axes if _model_axes(a))
+    return port, other + sum(counts[f"all-reduce:{a}:{n}"] for a in counter.axes for n in counter.sizes
+                             if _model_axes(a) and (a, n) not in keys)
+
+
+def assert_model_axis_all_reduces(ref, cell):
+    """The port's all-reduces over the model axis and its parts, operand
+    for operand over the step, are those of the reference's lowering
+    ``ref`` (``all_reduce_operands``, each counted as often as the loops
+    around it run) but for the differences ``model_axis_differences``
+    names."""
+    want = collections.Counter({(axes, int(n)): c for axes, by in ref["all_reduce_operands"].items()
+                                if _model_axes(axes) for n, c in by.items()})
+    differences = model_axis_differences(cell)
+    port_only = sum((p for p, _ in differences.values()), collections.Counter())
+    ref_only = sum((r for _, r in differences.values()), collections.Counter())
+    port, other = port_model_axis_all_reduces(cell, set(want) | set(port_only))
+    assert other == 0
+    assert not port_only - port and not ref_only - want, differences
+    assert port - port_only == want - ref_only, (port, want, differences)
 
 
 def test_column_parallel_input_gradients_all_reduced_as_the_reference_lowers_them(oracle):
@@ -622,8 +676,7 @@ def test_column_parallel_input_gradients_all_reduced_as_the_reference_lowers_the
     mesh = make_mesh(WO_CELL[2], ("data", "model"), device="meta")
     with pytest.MonkeyPatch.context() as mp, fake_device_mesh(mesh) as dm:
         _short(mp, s)
-        counter = _AllReducesByAxis({dm.get_group(i).group_name: a for i, a in enumerate(dm.mesh_dim_names)},
-                                    list(want))
+        counter = _AllReducesByAxis(dm, list(want))
         counts, _ = dryrun.count_step(counter, *dryrun.cell_step(cfg, SHAPE_OF["train"], mesh, dm,
                                                                  batch_override=b))
     port = {n: counts[f"all-reduce:model:{n}"] for n in want if counts[f"all-reduce:model:{n}"]}
@@ -650,6 +703,8 @@ MODEL_AXIS_CELLS = [c for c in CELLS if c[2][1] > 1]
 #: all-reduce over pairs of the model axis's chips at 1280)
 LOOKUP_BY_OTHER_OPS = [("qwen3-14b", "prefill", (4, 2), "d1024"), ("qwen3-14b", "prefill", (2, 4), "u1280"),
                        ("qwen3-14b", "train", (2, 4), "u1280")]
+#: of those, the cells whose lookup the reference all-reduces over pairs
+LOOKUP_OVER_PAIRS = [c for c in LOOKUP_BY_OTHER_OPS if c[3] == "u1280"]
 #: the cells on which the reference's partitioner splits the patch
 #: projection's contraction over the model axis: qwen2-vl's train step on
 #: (2, 4) only (not on (4, 2), nor in prefill)
@@ -668,10 +723,44 @@ def _attention_caches(cfg, s):
     return [(slots, layers)] if layers else []
 
 
+def _split_norms(cfg, mode, model, rows, s, mb):
+    """The reference's all-reduces of the qk-norms over parts of the model
+    axis (``{(axes, elements): count}``): it normalizes q and k on the
+    projections' column blocks, ``w`` = n·hd / model columns of the n heads
+    on each chip.  Where ``w`` splits a head over ``hd / w`` chips, it
+    all-reduces the mean of squares over them, (rows, tokens), at each use
+    (prefill: once a layer; train: the forward, the remat's recompute and
+    the backward, in each layer and microbatch), and in train the gamma's
+    gradient, ``w`` partial sums over the model / (hd / w) chips that hold
+    the same columns of other heads, in each layer and microbatch, and one
+    scalar of the global norm over the head's chips; where ``w`` neither
+    divides nor is divided by ``hd`` (10 query heads' 1,280 columns on 4
+    chips), the gamma's (hd,) gradient in each layer and microbatch over
+    the gcd(n, model) chips of distinct heads."""
+    def axes(n):
+        return "model" if n == model else f"model[{n}]"
+
+    out = collections.Counter()
+    hd, L = cfg.hd, cfg.n_layers
+    for n in (cfg.n_heads, cfg.n_kv_heads) if cfg.qk_norm else ():
+        w, rem = divmod(n * hd, model)
+        if rem or w % hd == 0:
+            continue
+        if hd % w == 0:
+            split = hd // w
+            out[(axes(split), rows * s)] += L * (3 * mb if mode == "train" else 1)
+            if mode == "train":
+                out[(axes(model // split), w)] += L * mb
+                out[(axes(split), 1)] += 1
+        elif mode == "train" and math.gcd(n, model) > 1:
+            out[(axes(math.gcd(n, model)), hd)] += L * mb
+    return out
+
+
 def model_axis_differences(cell):
-    """What sets the port's model-axis all-reduces apart from the
-    reference's, by name: ``{name: (port only, reference only)}``, each
-    ``{elements: count}`` over the step.
+    """What sets the port's all-reduces over the model axis and its parts
+    apart from the reference's, by name: ``{name: (port only, reference
+    only)}``, each ``{(axes, elements): count}`` over the step.
 
     * ``logsumexp`` (train): the reference all-reduces the loss's max and
       sum over the model-sharded vocabulary, (rows, tokens) each per
@@ -680,13 +769,17 @@ def model_axis_differences(cell):
       the KV heads): the reference all-reduces each layer's (hd,)
       gradient in its scan's trip, the port the stacked leaf's (L·hd,)
       once per microbatch: the same elements;
+    * ``qk-norm over a split head`` (:func:`_split_norms`): the reference
+      normalizes q and k on the projections' column blocks, where the
+      port gathers the heads whole first (``common.split_last``);
     * ``embedding gradient`` (train on (4, 2)): the reference all-reduces
       the table's gradient over the model axis, its whole vocabulary on
       each chip's D / data columns, once per microbatch; the port adds
       each chip's ids into its own vocabulary block (``common.embed_rows``);
     * ``embedding lookup`` (``LOOKUP_BY_OTHER_OPS``): the port all-reduces
       the masked lookup of the microbatch's rows over the model axis, the
-      reference moves it by another op;
+      reference moves it by another op (``LOOKUP_OVER_PAIRS``: an
+      all-reduce over pairs of the axis's chips);
     * ``decode scores`` (decode, each attention layer whose cache the
       decode state's rule splits on its head dim, the widest): the port
       all-reduces the scores' partial sums, (rows, H, 1, slots), where the
@@ -720,8 +813,13 @@ def model_axis_differences(cell):
             out["qk-norm gammas"] = ({cfg.n_layers * cfg.hd: norms * mb}, {cfg.hd: norms * cfg.n_layers * mb})
         if cell[2] == (4, 2):
             out["embedding gradient"] = ({}, {cfg.vocab_padded * cfg.d_model // data: mb})
+    if mode != "decode":
+        split = _split_norms(cfg, mode, model, rows, s, mb)
+        if split:
+            out["qk-norm over a split head"] = ({}, split)
     if cell in LOOKUP_BY_OTHER_OPS:
-        out["embedding lookup"] = ({b // mb * s * cfg.d_model // data: mb}, {})
+        lookup = b // mb * s * cfg.d_model // data
+        out["embedding lookup"] = ({lookup: mb}, {("model[2]", lookup): mb} if cell in LOOKUP_OVER_PAIRS else {})
     if mode == "decode":
         scores = collections.Counter()
         for slots, layers in _attention_caches(cfg, s):
@@ -736,35 +834,87 @@ def model_axis_differences(cell):
     if cfg.kind == "ssm" and mode == "train" and model > 1 and cfg.ssm_heads % model == 0 == cfg.ssm_state % model:
         out["unread last state"] = ({}, {rows * cfg.ssm_chunk * cfg.ssm_state: cfg.n_layers * mb})
         out["head params' norm"] = ({}, {1: 3})
-    return {k: tuple(collections.Counter(c) for c in v) for k, v in out.items()}
+    # a bare size is over the whole model axis
+    return {k: tuple(collections.Counter({(n if isinstance(n, tuple) else ("model", n)): c for n, c in side.items()})
+                     for side in v) for k, v in out.items()}
 
 
 @pytest.mark.parametrize("cell", MODEL_AXIS_CELLS, ids=lambda c: "-".join(map(str, c[:2] + c[3:])) +
                          f"-{c[2][0]}x{c[2][1]}")
 def test_model_axis_all_reduces_as_the_reference_lowers_them(oracle, cell):
-    """On every cell with a model axis: the port's all-reduces over it,
-    operand for operand over the step (``{elements: count}``, each layer
-    and microbatch counted), are the reference's on ``Auto`` mesh axes
+    """On every cell with a model axis: the port's all-reduces over it and
+    over its parts (attention's KV gradients over each KV head's chips,
+    ``model[2]`` where 2 KV heads lie on 4 chips), operand for operand
+    over the step (``{(axes, elements): count}``, each layer and
+    microbatch counted), are the reference's on ``Auto`` mesh axes
     (``all_reduce_operands``, each counted as often as the loops around it
     run) but for the differences ``model_axis_differences`` names."""
-    ref = oracle[cell]
-    want = collections.Counter({int(n): c for n, c in ref["all_reduce_operands"].get("model", {}).items()})
-    differences = model_axis_differences(cell)
-    port_only = sum((p for p, _ in differences.values()), collections.Counter())
-    ref_only = sum((r for _, r in differences.values()), collections.Counter())
+    assert_model_axis_all_reduces(oracle[cell], cell)
+
+
+class _BatchedProducts(dryrun.StepCount):
+    """``StepCount`` that also adds the FLOPs of the batched products
+    (``bmm``: attention's, the SSD's chunks') under ``"bmm_flops"``."""
+
+    def start(self, args):
+        super().start(args)
+        self.c["bmm_flops"] = 0
+
+    def _local_op(self, func, args, kwargs):
+        before = self.c["flops"]
+        out = super()._local_op(func, args, kwargs)
+        if func is torch.ops.aten.bmm.default:
+            self.c["bmm_flops"] += self.c["flops"] - before
+        return out
+
+
+def batched_product_flops(cell) -> int:
+    """The FLOPs per chip of the port's batched products over the cell's
+    whole step."""
     cfg, b, s = _size(cell)
     mesh = make_mesh(cell[2], ("data", "model"), device="meta")
     with pytest.MonkeyPatch.context() as mp, fake_device_mesh(mesh) as dm:
         _short(mp, s)
-        counter = _AllReducesByAxis({dm.get_group(i).group_name: a for i, a in enumerate(dm.mesh_dim_names)},
-                                    sorted(set(want) | set(port_only)))
-        counts, _ = dryrun.count_step(counter, *dryrun.cell_step(cfg, SHAPE_OF[cell[1]], mesh, dm,
-                                                                 batch_override=b))
-    assert counts["all-reduce:model:other"] == 0
-    port = collections.Counter({n: counts[f"all-reduce:model:{n}"] for n in set(want) | set(port_only)
-                                if counts[f"all-reduce:model:{n}"]})
-    assert not port_only - port and not ref_only - want, differences
-    assert port - port_only == want - ref_only, (port, want, differences)
+        counts, _ = dryrun.count_step(_BatchedProducts(), *dryrun.cell_step(cfg, SHAPE_OF[cell[1]], mesh, dm,
+                                                                          batch_override=b))
+    return counts["bmm_flops"]
+
+
+#: each (2, 4), (4, 2) and (1, 8) cell of qwen3 at every width, and how
+#: many chips run each of attention's scores in the reference's partition:
+#: one where the model axis divides the KV heads or each KV head's chips
+#: divide its query heads; both chips of the pair that holds a KV head of
+#: the u1280 cells (5 query heads on 2 chips: GSPMD neither pads them nor
+#: splits the head dim, each chip runs the group); the 2 chips that split
+#: a query head's head dim on (1, 8) (2 KV heads and 4 query heads on 8
+#: chips: the scores whole on each, their product with v on half of hd);
+#: every chip of (1, 8) for the phi3-like 5 KV heads (GSPMD runs them
+#: whole on each chip)
+SCORES_CHIPS = {c: 1 for c in CELLS if c[0] == "qwen3-14b" and c[1] != "decode" and c[2] in ((2, 4), (4, 2))} | {
+    ("qwen3-14b", m, (2, 4), "u1280"): 2 for m in ("prefill", "train")} | {
+    ("qwen3-14b", m, (1, 8)): 2 for m in ("prefill", "train")} | {c: 8 for c in KV5_CELLS}
+
+
+@pytest.mark.parametrize("cell", list(SCORES_CHIPS), ids=lambda c: "-".join(map(str, c[:2] + c[3:])) +
+                         f"-{c[2][0]}x{c[2][1]}")
+def test_attention_runs_each_chips_share_of_the_heads(oracle, cell):
+    """Attention's FLOPs per chip (its batched products: the scores and
+    their product with v, forward, the remat's recompute and backward)
+    equal the reference's (``batched_dot_flops``), and with each chip's
+    share of the heads (``attention._head_groups``) they are the one-chip
+    step's over the chips (``SCORES_CHIPS``: times the chips that run the
+    same scores), also where the model axis divides the heads, which no
+    all-reduce shows; the 5 KV heads on 8 chips run whole on each chip, as
+    the reference runs them."""
+    port = batched_product_flops(cell)
+    assert port == oracle[cell]["batched_dot_flops"]
+    one = batched_product_flops(cell[:2] + ((1, 1),) + cell[3:])
+    chips = cell[2][0] * cell[2][1]
+    if (cell[2], cell[3:]) == ((1, 8), ()):
+        # the scores' products on 2 chips, their product with v split too
+        assert one < port * chips < 2 * one
+    else:
+        assert port * chips == SCORES_CHIPS[cell] * one
 
 
 @pytest.mark.parametrize("mode", ["train", "prefill", "decode"])
@@ -824,6 +974,16 @@ def test_sharded_temporaries_on_meta_equal_real_cpu_tensors(mode, mesh):
     ``meta`` (or CUDA) leaves out by their device and one on the CPU
     cannot: within 0.1%."""
     assert_sharded_meta_equals_cpu("qwen3-14b", mode, mesh)
+
+
+@pytest.mark.parametrize("mesh", [(2, 4), (1, 8)])
+def test_head_groups_temporaries_on_meta_equal_real_cpu_tensors(mesh):
+    """The same on meshes whose model axis does not divide qwen3's 2 KV
+    heads (``attention._head_groups``: each KV head on a pair of the
+    axis's chips; on 4 chips of 8, each chip one query head and half of
+    v's head dim), the train step: its forward, the remat's recompute and
+    the backward, whose KV gradients are summed over parts of the axis."""
+    assert_sharded_meta_equals_cpu("qwen3-14b", "train", mesh)
 
 
 def assert_sharded_meta_equals_cpu(arch, mode, mesh):

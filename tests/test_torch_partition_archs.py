@@ -13,26 +13,25 @@ mamba2-780m, with its helpers:
   mamba2-780m prefill and train on (2, 4), decode on (4, 2);
 * the port's collectives over the step within 0.5-2x of the reference's,
   in elements (the reference's counted per loop trip);
-* on every cell with a model axis, the port's all-reduces over it operand
-  for operand the reference's but for the differences
-  ``model_axis_differences`` names; the reference's all-reduces over a
-  part of the model axis (``SUB_AXIS``) named too;
+* on every cell with a model axis, the port's all-reduces over it and
+  over its parts (qwen2-vl's KV gradients over each pair of chips that
+  holds a KV head) operand for operand the reference's but for the
+  differences ``model_axis_differences`` names;
+* on every prefill and train cell with a model axis, the FLOPs of the
+  port's batched products (attention's) per chip equal the reference's;
 * the reference's step takes the inputs the port's dry run gives its own;
 * mamba2's SSD runs on each chip's heads and state: its step's FLOPs
   per chip on (2, 4) an eighth of the one-chip step's.
 """
-import collections
 import json
 
 import pytest
 
 from repro_torch.configs.shapes import input_specs
-from repro_torch.dist.sharding import fake_device_mesh
 from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import ssm
-from test_torch_partition import (SHAPE_OF, _AllReducesByAxis, _oracle, _plan, _short, _size, _spec,
-                                  model_axis_differences)
+from test_torch_partition import (SHAPE_OF, _oracle, _plan, _short, _size, _spec, assert_model_axis_all_reduces,
+                                  batched_product_flops)
 
 ARCHS = ("recurrentgemma-9b", "whisper-medium", "qwen2-vl-72b")
 MESHES = ((8, 1), (4, 2), (2, 4))
@@ -40,15 +39,6 @@ CELLS = [(a, m, mesh) for a in ARCHS for m in ("prefill", "train") for mesh in M
     [(a, "decode", (4, 2)) for a in ARCHS] + \
     [("mamba2-780m", m, (2, 4)) for m in ("prefill", "train")] + [("mamba2-780m", "decode", (4, 2))]
 MODEL_AXIS_CELLS = [c for c in CELLS if c[2][1] > 1]
-#: the reference's all-reduces over a part of the model axis, by cell:
-#: ``{axes: {elements: count}}`` over the step.  qwen2-vl's 2 KV heads on a
-#: model axis of 4: GSPMD splits the KV heads over pairs of the axis's
-#: chips and the query groups within each pair, and all-reduces each
-#: layer's ``dk`` and ``dv`` (rows, 1, tokens, hd) over the pair in each
-#: microbatch; DTensor has no placement over a part of a mesh axis, and the
-#: port gathers the query heads (``common.even_heads``) and runs the
-#: attention whole on each chip of the model axis
-SUB_AXIS = {("qwen2-vl-72b", "train", (2, 4)): {"model[2]": {4 * 64 * 16: 2 * 2 * 2}}}
 
 
 def _id(cell):
@@ -81,40 +71,29 @@ def test_collective_elements_within_twice_the_reference(oracle, plans, cell):
     assert set(ref["elements_per_trip"]) <= set(port) == set(dryrun.COLLECTIVE_KINDS)
 
 
-def _model_axis_all_reduces(cell, sizes):
-    """The port's all-reduces over the model axis over the cell's whole
-    step, ``{elements: count}`` for the ``sizes`` given, and the count of
-    any other."""
-    cfg, b, s = _size(cell)
-    mesh = make_mesh(cell[2], ("data", "model"), device="meta")
-    with pytest.MonkeyPatch.context() as mp, fake_device_mesh(mesh) as dm:
-        _short(mp, s)
-        counter = _AllReducesByAxis({dm.get_group(i).group_name: a for i, a in enumerate(dm.mesh_dim_names)},
-                                    sorted(sizes))
-        counts, _ = dryrun.count_step(counter, *dryrun.cell_step(cfg, SHAPE_OF[cell[1]], mesh, dm,
-                                                                 batch_override=b))
-    port = collections.Counter({n: counts[f"all-reduce:model:{n}"] for n in sizes
-                                if counts[f"all-reduce:model:{n}"]})
-    return port, counts["all-reduce:model:other"]
-
-
 @pytest.mark.parametrize("cell", MODEL_AXIS_CELLS, ids=_id)
 def test_model_axis_all_reduces_as_the_reference_lowers_them(oracle, cell):
-    """The port's all-reduces over the model axis, operand for operand over
-    the step, are the reference's but for the differences
-    ``model_axis_differences`` names; the reference's over a part of the
-    axis are ``SUB_AXIS`` 's."""
-    ref = oracle[cell]["all_reduce_operands"]
-    want = collections.Counter({int(n): c for n, c in ref.get("model", {}).items()})
-    differences = model_axis_differences(cell)
-    port_only = sum((p for p, _ in differences.values()), collections.Counter())
-    ref_only = sum((r for _, r in differences.values()), collections.Counter())
-    port, other = _model_axis_all_reduces(cell, set(want) | set(port_only))
-    assert other == 0
-    assert not port_only - port and not ref_only - want, differences
-    assert port - port_only == want - ref_only, (port, want, differences)
-    sub = {axes: {int(n): c for n, c in by.items()} for axes, by in ref.items() if axes.startswith("model[")}
-    assert sub == SUB_AXIS.get(cell, {})
+    """The port's all-reduces over the model axis and over its parts,
+    operand for operand over the step, are the reference's but for the
+    differences ``model_axis_differences`` names: on qwen2-vl's train
+    step on (2, 4), each layer's ``dk`` and ``dv`` (rows, tokens, 1, hd)
+    over the pair of chips that holds its KV head in each microbatch, as
+    GSPMD splits 2 KV heads over a model axis of 4 and the query groups
+    within each pair (``attention._head_groups``)."""
+    assert_model_axis_all_reduces(oracle[cell], cell)
+
+
+@pytest.mark.parametrize("cell", [c for c in MODEL_AXIS_CELLS if c[1] != "decode" and
+                                  (c[0], c[1]) != ("mamba2-780m", "train")], ids=_id)
+def test_batched_products_flops_as_the_reference_lowers_them(oracle, cell):
+    """The FLOPs per chip of the port's batched products (attention's
+    scores and their product with v, forward, the remat's recompute and
+    backward; the SSD's chunk products) over the step equal those of the
+    reference's dots with batch dims (``batched_dot_flops``): each chip
+    runs the heads GSPMD gives it.  Not mamba2's train step, whose
+    reference scan also transposes the last chunk's unread state update
+    (``model_axis_differences``)."""
+    assert batched_product_flops(cell) == oracle[cell]["batched_dot_flops"]
 
 
 @pytest.mark.parametrize("arch", ARCHS + ("mamba2-780m",))

@@ -145,9 +145,10 @@ def test_moe_block_collectives_by_hand(mesh, shared):
     of the up products' input sums over F again, all-reduced where the
     dispatch's gather meets it (320 B); every weight gradient keeps its
     weight's shard.  With the shared expert its down product all-reduces
-    the (B·S, D) output once more (2·8·8·2 = 256 B), and each of its two
-    up products' input gradient, partial sums over F, is all-reduced
-    where it is made (``common.summed_grad``, 2 x 256 B).
+    the (B·S, D) output once more, and each of its two up products' input
+    gradient, partial sums over F, is all-reduced where it is made
+    (``common.summed_grad``): (B·S, D) bf16 partial sums each, summed in
+    float32 (``common.summed``; 3 x 2·8·8·4 = 3 x 512 B).
 
     (2, 1), FSDP: the tokens and each weight's D are sharded over the
     data axis.  Forward: the router's (4, 2) float32 block is gathered
@@ -163,7 +164,7 @@ def test_moe_block_collectives_by_hand(mesh, shared):
     the gathered router autograd saved."""
     want = {
         ((1, 2), False): {"all-reduce": (2, 2 * 320)},
-        ((1, 2), True): {"all-reduce": (5, 2 * 320 + 3 * 256)},
+        ((1, 2), True): {"all-reduce": (5, 2 * 320 + 3 * 512)},
         ((2, 1), False): {"all-gather": (4, 32 + 3 * 128), "all-reduce": (4, 4 + 4 + 8 + 4),
                           "reduce-scatter": (4, 64 + 3 * 256)},
     }[(mesh, shared)]
@@ -393,7 +394,7 @@ def test_ssd_chunk_products_run_on_each_chips_heads_and_state(monkeypatch):
     with fake_device_mesh(mesh) as dm, monkeypatch.context() as mp:
         mp.setattr(ssm, "_scan", spy)
         args = to_dtensors((params, u), (shardings, NamedSharding(mesh, P("data"))), dm)
-        counter = _AllReducesByAxis({dm.get_group(i).group_name: a for i, a in enumerate(dm.mesh_dim_names)}, sizes)
+        counter = _AllReducesByAxis(dm, sizes)
         counts, _ = dryrun.count_step(counter, step, args)
     assert seen == [((rows, S, H // 2, P_), (rows, S, N // 2), N)]
     nc = S // Q
