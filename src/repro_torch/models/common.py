@@ -193,15 +193,16 @@ def batch_rows(fn, *ts: torch.Tensor):
     and each output a DTensor so placed.  Torch 2.11's DTensor plans no
     index into a batch sharded over two mesh axes, nor the backward of an
     index whose gradient is a partial sum, where each sequence's rows are
-    on one chip all along.  The identity, ``fn(*ts)``, on plain tensors."""
+    on one chip all along.  A 16-bit partial sum is summed in float32
+    (:func:`_summed_to`).  The identity, ``fn(*ts)``, on plain tensors."""
     first = next((t for t in ts if isinstance(t, DTensor)), None)
     if first is None:
         return fn(*ts)
     mesh = first.device_mesh
     pl = _batch_placements(first) or [Replicate()] * mesh.ndim
-    local = [(t if isinstance(t, DTensor) else DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
-                                                                   run_check=False))
-             .redistribute(mesh, pl).to_local() for t in ts]
+    local = [_summed_to(t if isinstance(t, DTensor) else DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                                                             run_check=False), pl).to_local()
+             for t in ts]
     out = fn(*local)
 
     def wrap(o):
@@ -557,8 +558,17 @@ def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     them: each chip multiplies its own batch rows by the whole contraction,
     autograd saves the gathered weight, so ``dx`` keeps the rows' batch
     shard, and the weight's gradient is reduce-scattered onto its shard
-    once, at the gather's backward.  ``x`` is never gathered."""
-    return summed(torch.matmul(*promoted(x, fsdp_gathered(w))))
+    once, at the gather's backward.  ``x`` is never gathered.  An ``x`` of
+    more than two dims is folded to its rows first, one plain product as
+    the reference's dot: ``torch.matmul`` folds it only where its strides
+    chain, and a DTensor's merged decode heads (B, 1, H·hd) keep the size-1
+    dim's stride of the (B, H, 1, hd) scores, so it would broadcast ``w``
+    over the B rows into a batched product instead (B copies of ``w`` read,
+    and held where DTensor shards the broadcast)."""
+    x, w = promoted(x, fsdp_gathered(w))
+    if x.ndim > 2 and w.ndim == 2:
+        return summed(torch.matmul(x.reshape(-1, x.shape[-1]), w).view(*x.shape[:-1], w.shape[-1]))
+    return summed(torch.matmul(x, w))
 
 
 def einsum(eq: str, *ts: torch.Tensor) -> torch.Tensor:

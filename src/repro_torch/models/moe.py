@@ -37,6 +37,7 @@ from .common import (
     param_device,
     promoted,
     silu,
+    summed,
     summed_grad,
 )
 
@@ -130,10 +131,14 @@ def _expert_ffn(p, expert_in: torch.Tensor) -> torch.Tensor:
 
 def _expert_ffn_batched(p, expert_in: torch.Tensor) -> torch.Tensor:
     """(B, E, C, D) -> (B, E, C, D): each expert's rows of every sequence
-    in one batched product per weight."""
+    in one batched product per weight.  Tensor parallel inside the experts
+    (F over the model axis), the down product's partial sums are completed
+    where they are made (:func:`summed`), and so is the gradient of the up
+    products' input (:func:`summed_grad`), as :func:`mlp` completes its
+    own: in float32, before a reshape across the slot dims meets them."""
     B, E, C, D = expert_in.shape
-    rows = expert_in.transpose(0, 1).reshape(E, B * C, D)
-    return _expert_ffn(p, rows).reshape(E, B, C, -1).transpose(0, 1)
+    rows = summed_grad(expert_in.transpose(0, 1).reshape(E, B * C, D))
+    return summed(_expert_ffn(p, rows)).reshape(E, B, C, -1).transpose(0, 1)
 
 
 def moe(

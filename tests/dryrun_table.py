@@ -3,6 +3,7 @@ the single- and multi-pod meshes side by side.
 
     PYTHONPATH=src python tests/dryrun_table.py results/dryrun_torch [OTHER_DIR]
     PYTHONPATH=src python tests/dryrun_table.py AFTER_DIR --before BEFORE_DIR
+    PYTHONPATH=src python tests/dryrun_table.py AFTER_DIR --before BEFORE_DIR --counts [SHAPE]
 
 Each ok cell gives its per-chip arguments plus temporaries (GiB, and the
 share of an 80 GiB card), its collectives per chip (GB) and its plan
@@ -12,7 +13,10 @@ cell whose bytes or collectives differ from it by more than 1% is marked
 ``*``, and the marked cells are counted.  The last line counts the cells
 by status and sums the plan seconds.  With ``--before`` each cell gives
 both sweeps' GiB and collectives instead (before -> after), the
-collectives' ratio, and ``!`` where they rose more than 2x.
+collectives' ratio, and ``!`` where they rose more than 2x; with
+``--counts`` each ok cell (of ``SHAPE`` only, where given) whose FLOPs,
+bytes accessed, temporaries or collectives per chip differ, each count
+exact (``=`` where it did not move), then how many cells moved.
 """
 import json
 import sys
@@ -63,9 +67,37 @@ def before_after(after, before) -> None:
         print(f"| {arch} | {shape} | {entries[0]} | {entries[1]} |")
 
 
+#: a cell's exact counts per chip that ``--counts`` compares
+COUNTS = {"flops": lambda r: r["flops_per_chip"], "bytes accessed": lambda r: r["bytes_accessed_per_chip"],
+          "temp bytes": lambda r: r["memory_analysis"]["temp_bytes"],
+          "collective bytes": lambda r: r["collectives"]["total_per_chip_bytes"]}
+
+
+def counts_before_after(after, before, shape=None) -> None:
+    print("| arch | shape | mesh | " + " | ".join(f"{k}, before -> after" for k in COUNTS) + " |")
+    print("| --- | --- | --- |" + " --- |" * len(COUNTS))
+    moved = compared = 0
+    for key in sorted(after):
+        a, b = after[key], before.get(key)
+        if (shape and key[1] != shape) or b is None or a["status"] != "ok" or b["status"] != "ok":
+            continue
+        compared += 1
+        pairs = [(get(b), get(a)) for get in COUNTS.values()]
+        if all(x == y for x, y in pairs):
+            continue
+        moved += 1
+        print(f"| {' | '.join(key)} | " + " | ".join("=" if x == y else f"{x:,} -> {y:,} ({y / x:.4f}x)"
+                                                    for x, y in pairs) + " |")
+    print(f"\n{moved} of {compared} ok cells moved")
+
+
 def main(argv) -> None:
     if "--before" in argv:
         i = argv.index("--before")
+        if "--counts" in argv:
+            j = argv.index("--counts")
+            counts_before_after(cells(argv[0]), cells(argv[i + 1]), argv[j + 1] if j + 1 < len(argv) else None)
+            return
         before_after(cells(argv[0]), cells(argv[i + 1]))
         return
     main_cells = cells(argv[0])

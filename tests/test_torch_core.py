@@ -55,3 +55,22 @@ def test_cost_measures_and_virtual_cluster_match():
     rj = jv.record_interval(0, costs, mapping, neighbors=nbrs, surface_bytes=surf, lb_called=True)
     rt = tv.record_interval(0, costs, mapping, neighbors=nbrs, surface_bytes=surf, lb_called=True)
     assert [tuple(vars(r).values()) for r in rt] == [tuple(vars(r).values()) for r in rj]
+
+
+def test_knapsack_loses_to_round_robin_on_a_known_input():
+    """The reference's LPT knapsack (``max_boxes_per_device=None``) can do
+    worse than the cost-oblivious round robin, against what
+    ``tests/test_core_policies.py::test_knapsack_beats_round_robin``
+    asserts for every draw: on these 22 boxes over 2 devices it reaches
+    an efficiency of 0.985569 where round robin reaches 0.999973.  The
+    port's mapping is the reference's, so the port keeps the defect."""
+    costs = np.array([0, 251493, 0, 229410, 923239, 621683, 0, 0, 279730, 840609, 0, 0, 0, 81876, 0, 0,
+                      536423, 133873, 419667, 0, 0, 0], dtype=np.float64)
+    ref = jcore.knapsack_partition(costs, 2, max_boxes_per_device=None)
+    port = tcore.knapsack_partition(costs, 2, max_boxes_per_device=None)
+    np.testing.assert_array_equal(port, ref)
+    rr = tcore.round_robin_mapping(len(costs), 2)
+    np.testing.assert_array_equal(rr, jcore.round_robin_mapping(len(costs), 2))
+    for eff in (jcore.efficiency, tcore.efficiency):
+        assert abs(eff(costs, port, 2) - 0.985569) < 1e-6
+        assert abs(eff(costs, rr, 2) - 0.999973) < 1e-6

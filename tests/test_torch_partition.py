@@ -60,6 +60,7 @@ import torch.testing._internal.distributed.fake_pg  # noqa: F401  (registers the
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import get_config
 from repro_torch.configs.shapes import SHAPES, ShapeSpec
@@ -889,8 +890,10 @@ def batched_product_flops(cell) -> int:
 #: a query head's head dim on (1, 8) (2 KV heads and 4 query heads on 8
 #: chips: the scores whole on each, their product with v on half of hd);
 #: every chip of (1, 8) for the phi3-like 5 KV heads (GSPMD runs them
-#: whole on each chip)
+#: whole on each chip); one for the d1024 decode cells' scores against
+#: the cache, on (8, 1) and (4, 2)
 SCORES_CHIPS = {c: 1 for c in CELLS if c[0] == "qwen3-14b" and c[1] != "decode" and c[2] in ((2, 4), (4, 2))} | {
+    c: 1 for c in WIDE_CELLS if c[1] == "decode"} | {
     ("qwen3-14b", m, (2, 4), "u1280"): 2 for m in ("prefill", "train")} | {
     ("qwen3-14b", m, (1, 8)): 2 for m in ("prefill", "train")} | {c: 8 for c in KV5_CELLS}
 
@@ -905,7 +908,9 @@ def test_attention_runs_each_chips_share_of_the_heads(oracle, cell):
     step's over the chips (``SCORES_CHIPS``: times the chips that run the
     same scores), also where the model axis divides the heads, which no
     all-reduce shows; the 5 KV heads on 8 chips run whole on each chip, as
-    the reference runs them."""
+    the reference runs them.  In decode they are the scores against the
+    cache and their product with it, ``wo`` one plain product
+    (:func:`test_decode_out_projection_is_one_plain_product`)."""
     port = batched_product_flops(cell)
     assert port == oracle[cell]["batched_dot_flops"]
     one = batched_product_flops(cell[:2] + ((1, 1),) + cell[3:])
@@ -915,6 +920,47 @@ def test_attention_runs_each_chips_share_of_the_heads(oracle, cell):
         assert one < port * chips < 2 * one
     else:
         assert port * chips == SCORES_CHIPS[cell] * one
+
+
+class _OpsSeen(TorchDispatchMode):
+    """The ops that reach the dispatch modes (on DTensors: before DTensor
+    runs them as local ops)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(func)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("cell", [c for c in WIDE_CELLS if c[1] == "decode"] +
+                         [("qwen3-14b", "decode", (1, 1), "d1024")],
+                         ids=lambda c: f"{c[2][0]}x{c[2][1]}")
+def test_decode_out_projection_is_one_plain_product(monkeypatch, cell):
+    """In the partitioned decode step each attention layer's output
+    projection (``attention._out_proj``) is one ``mm`` on each chip's rows
+    of the merged heads, as the reference lowers ``wo`` in decode: no
+    ``bmm`` and no ``expand`` of ``wo`` over the batch rows.  The merged
+    heads (B, 1, H·hd) keep the size-1 dim's stride of the (B, H, 1, hd)
+    scores, so ``torch.matmul`` would not fold them (``common.mm`` folds
+    them itself)."""
+    seen = []
+    out_proj = attention._out_proj
+
+    def traced(out, wo):
+        with _OpsSeen() as mode:
+            y = out_proj(out, wo)
+        seen.append((type(out), collections.Counter(f._overloadpacket for f in mode.ops)))
+        return y
+
+    monkeypatch.setattr(attention, "_out_proj", traced)
+    batched_product_flops(cell)
+    assert seen
+    for kind, ops in seen:
+        assert kind is DTensor and ops[torch.ops.aten.mm] == 1, (kind, ops)
+        assert not ops[torch.ops.aten.bmm] and not ops[torch.ops.aten.expand], ops
 
 
 @pytest.mark.parametrize("mode", ["train", "prefill", "decode"])

@@ -17,8 +17,9 @@ mamba2-780m, with its helpers:
   over its parts (qwen2-vl's KV gradients over each pair of chips that
   holds a KV head) operand for operand the reference's but for the
   differences ``model_axis_differences`` names;
-* on every prefill and train cell with a model axis, the FLOPs of the
-  port's batched products (attention's) per chip equal the reference's;
+* on every cell with a model axis, the FLOPs of the port's batched
+  products (attention's, the SSD's) per chip equal the reference's (not
+  mamba2's train step);
 * the reference's step takes the inputs the port's dry run gives its own;
 * mamba2's SSD runs on each chip's heads and state: its step's FLOPs
   per chip on (2, 4) an eighth of the one-chip step's.
@@ -83,15 +84,18 @@ def test_model_axis_all_reduces_as_the_reference_lowers_them(oracle, cell):
     assert_model_axis_all_reduces(oracle[cell], cell)
 
 
-@pytest.mark.parametrize("cell", [c for c in MODEL_AXIS_CELLS if c[1] != "decode" and
-                                  (c[0], c[1]) != ("mamba2-780m", "train")], ids=_id)
+@pytest.mark.parametrize("cell", [c for c in MODEL_AXIS_CELLS if (c[0], c[1]) != ("mamba2-780m", "train")],
+                         ids=_id)
 def test_batched_products_flops_as_the_reference_lowers_them(oracle, cell):
     """The FLOPs per chip of the port's batched products (attention's
     scores and their product with v, forward, the remat's recompute and
-    backward; the SSD's chunk products) over the step equal those of the
-    reference's dots with batch dims (``batched_dot_flops``): each chip
-    runs the heads GSPMD gives it.  Not mamba2's train step, whose
-    reference scan also transposes the last chunk's unread state update
+    backward; the SSD's chunk products; in decode the scores against the
+    cache and the SSD's readout of each row's state) over the step equal
+    those of the reference's dots with batch dims (``batched_dot_flops``):
+    each chip runs the heads GSPMD gives it, and decode's ``wo`` is one
+    plain product (``common.mm``), no batched one over a copy of the
+    weight for each row.  Not mamba2's train step, whose reference scan
+    also transposes the last chunk's unread state update
     (``model_axis_differences``)."""
     assert batched_product_flops(cell) == oracle[cell]["batched_dot_flops"]
 

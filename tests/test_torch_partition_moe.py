@@ -134,17 +134,18 @@ def _moe_block_counts(mesh_shape, shared: bool):
 
 @pytest.mark.parametrize("mesh,shared", [((1, 2), False), ((1, 2), True), ((2, 1), False)])
 def test_moe_block_collectives_by_hand(mesh, shared):
-    """B·E·C·D = 2·2·5·8 = 160 slot rows of bf16, 320 B.
+    """B·E·C·D = 2·2·5·8 = 160 slot rows of bf16, 320 B, summed in float32
+    (640 B).
 
     (1, 2), tensor parallel inside the experts: the router and the tokens
     are replicated, ``w_gate`` / ``w_up`` (E, D, F) shard F and ``w_down``
     (E, F, D) its F over the model axis.  Forward: the up products need no
     collective, the down product sums over the sharded F (partial sums),
-    completed by one all-reduce of the (B, E·C, D) expert output (320 B)
-    where the combine gathers it on local blocks.  Backward: the gradient
-    of the up products' input sums over F again, all-reduced where the
-    dispatch's gather meets it (320 B); every weight gradient keeps its
-    weight's shard.  With the shared expert its down product all-reduces
+    completed by one all-reduce of the (E, B·C, D) expert output where it
+    is made (``common.summed``: in float32, 640 B).  Backward: the
+    gradient of the up products' input sums over F again, all-reduced
+    where it is made (``common.summed_grad``, 640 B); every weight
+    gradient keeps its weight's shard.  With the shared expert its down product all-reduces
     the (B·S, D) output once more, and each of its two up products' input
     gradient, partial sums over F, is all-reduced where it is made
     (``common.summed_grad``): (B·S, D) bf16 partial sums each, summed in
@@ -163,8 +164,8 @@ def test_moe_block_collectives_by_hand(mesh, shared):
     expert weight's 2·8·8 bf16 one (3 x 256 B); the tokens' gradient uses
     the gathered router autograd saved."""
     want = {
-        ((1, 2), False): {"all-reduce": (2, 2 * 320)},
-        ((1, 2), True): {"all-reduce": (5, 2 * 320 + 3 * 512)},
+        ((1, 2), False): {"all-reduce": (2, 2 * 640)},
+        ((1, 2), True): {"all-reduce": (5, 2 * 640 + 3 * 512)},
         ((2, 1), False): {"all-gather": (4, 32 + 3 * 128), "all-reduce": (4, 4 + 4 + 8 + 4),
                           "reduce-scatter": (4, 64 + 3 * 256)},
     }[(mesh, shared)]
@@ -225,6 +226,34 @@ def test_batch_rows_runs_on_each_chips_rows():
         for d, w in ((rows, want[0]), (nxt, want[1])):
             assert d.placements == (Shard(0), Shard(0), Replicate()) and d.shape == w.shape
             assert torch.equal(d.to_local(), w[:2])
+
+
+@pytest.mark.parametrize("form", ["plain", "partial"])
+def test_batch_rows_sums_bf16_partials_in_float32(form):
+    """A bf16 ``Partial`` input to ``batch_rows`` (partial sums over the
+    model axis of (1, 2)) is summed in float32 and cast back
+    (``common._summed_to``): one all-reduce of its 4·6·8 elements at 4
+    bytes, a bf16 result on the batch placements; on plain bf16 tensors
+    ``batch_rows`` is ``fn`` itself, bit for bit."""
+    def fn(x, idx):
+        return x[torch.arange(x.shape[0])[:, None], idx]
+
+    if form == "plain":
+        gen = torch.Generator().manual_seed(0)
+        x = torch.randn(4, 6, 8, generator=gen).to(torch.bfloat16)
+        idx = torch.randint(0, 6, (4, 3), generator=gen)
+        got = common.batch_rows(fn, x, idx)
+        assert type(got) is torch.Tensor and torch.equal(got, fn(x, idx))
+        return
+    mesh = make_mesh((1, 2), ("data", "model"), device="meta")
+    x = torch.empty(4, 6, 8, dtype=torch.bfloat16, device="meta")
+    idx = torch.zeros(4, 3, dtype=torch.int64, device="meta")
+    with fake_device_mesh(mesh) as dm:
+        args = (DTensor.from_local(x, dm, [Replicate(), Partial()], run_check=False),
+                DTensor.from_local(idx, dm, [Replicate(), Replicate()], run_check=False))
+        counts, out = dryrun.count_step(dryrun.StepCount(), lambda *a: common.batch_rows(fn, *a), args)
+    assert (counts["all-reduce_count"], counts["all-reduce_bytes"]) == (1, 4 * 6 * 8 * 4)
+    assert out.dtype == torch.bfloat16 and out.placements == (Replicate(), Replicate()) and out.shape == (4, 3, 8)
 
 
 def test_embed_rows_looks_up_and_adds_on_local_blocks():
