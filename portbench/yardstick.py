@@ -1,0 +1,79 @@
+"""The card's peaks and the work the PIC kernels must do, counted from
+particles and cells (never from the program's own accounting).
+
+Peaks: NVIDIA's data sheet for the H100 SXM at its 700 W limit, dense,
+float32 outside the tensor cores.  Per launch of one species over one step:
+
+  * gather + push + move, in place: 5 floats read and written per executed
+    lane, the six field tiles of each occupied box read, the counts read
+    and the counters written; 512 float32 operations per executed lane;
+  * deposition: 5 floats read per executed lane, three current tiles of
+    every box written, counts and counters; 310 operations per lane.
+
+An executed lane is a particle lane of a started 256-lane chunk: a box of
+n alive particles executes ceil(n / 256) · 256 lanes, whatever layout the
+program keeps them in.  The operation counts per lane come from the CUDA
+sources: four order-3 weight sets (202), six 4x4 gathers (240) and the
+Boris push and move (70); three 4x4 scatters (108).
+
+The whole step's bound (``step_mfu``) counts alive particles, not lanes,
+and adds the Yee update's field traffic: 6 fields and 3 currents read, 6
+fields written, per cell.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+__all__ = [
+    "PEAK_BYTES_PER_S",
+    "PEAK_FP32_PER_S",
+    "bound_s",
+    "gather_push_work",
+    "deposition_work",
+    "step_bound_s",
+    "executed_lanes",
+]
+
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+GATHER_PUSH_FLOPS_PER_LANE = 202 + 240 + 70
+DEPOSITION_FLOPS_PER_LANE = 202 + 108
+CHUNK = 256
+
+
+def bound_s(n_bytes: float, n_flops: float) -> float:
+    """The least time the card could take: bytes or operations, whichever
+    bounds."""
+    return max(n_bytes / PEAK_BYTES_PER_S, n_flops / PEAK_FP32_PER_S)
+
+
+def executed_lanes(counts: np.ndarray) -> np.ndarray:
+    return np.ceil(np.asarray(counts, np.float64) / CHUNK) * CHUNK
+
+
+def gather_push_work(counts: np.ndarray, tile_cells: int) -> Tuple[float, float]:
+    """(bytes, operations) of one launch over per-box alive ``counts``."""
+    counts = np.asarray(counts, np.float64)
+    lanes = float(executed_lanes(counts).sum())
+    occupied = float(np.count_nonzero(counts))
+    n_bytes = 40 * lanes + 24 * tile_cells * occupied + 8 * counts.size
+    return n_bytes, lanes * GATHER_PUSH_FLOPS_PER_LANE
+
+
+def deposition_work(counts: np.ndarray, tile_cells: int) -> Tuple[float, float]:
+    counts = np.asarray(counts, np.float64)
+    lanes = float(executed_lanes(counts).sum())
+    n_bytes = 20 * lanes + 12 * tile_cells * counts.size + 8 * counts.size
+    return n_bytes, lanes * DEPOSITION_FLOPS_PER_LANE
+
+
+def step_bound_s(alive: float, cells: int) -> float:
+    """The physics bound of one whole step: both kernels over ``alive``
+    particles (all species) plus the Yee update over ``cells`` cells."""
+    push = bound_s(40 * alive, alive * GATHER_PUSH_FLOPS_PER_LANE)
+    deposit = bound_s(20 * alive, alive * DEPOSITION_FLOPS_PER_LANE)
+    fields = bound_s(15 * 4 * cells, 0.0)
+    return push + deposit + fields
+
