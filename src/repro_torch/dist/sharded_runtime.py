@@ -82,13 +82,13 @@ nothing, so there is nothing to overlap there).
 """
 from __future__ import annotations
 
-import contextlib
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from .. import _trace
 from .._device import sync_free_region, to_device
 from ..core import LoadBalancer
 from ..core.policies import hop_radius, locality_repair
@@ -285,8 +285,6 @@ class ShardedRuntime(_StragglerMixin):
         self.adaptive_mig = bool(adaptive_mig)
         self.mig_patience = int(mig_patience)
         self.strict_syncs = bool(strict_syncs)
-        #: record_function spans around the split phases (interval_trace)
-        self._tracing = False
         self.t = 0.0
         self.step_idx = 0
         #: host dispatches (interval loops launched + host->device commits)
@@ -302,6 +300,9 @@ class ShardedRuntime(_StragglerMixin):
 
         self.mesh = make_box_mesh(n_devices, devices, device)
         self.devices = list(self.mesh)
+        #: the card that times the spans over every logical device, where
+        #: they all share one
+        self._trace_on = self.devices[0] if len(set(self.devices)) == 1 else None
         self._bpd = grid.n_boxes // n_devices
 
         self.balancer = LoadBalancer(
@@ -933,13 +934,6 @@ class ShardedRuntime(_StragglerMixin):
             results.append((out, alive, dropped_c + dropped_e[d], demands[d].to(torch.int32)))
         return results
 
-    def _span(self, name: str):
-        """A ``torch.profiler`` span while :meth:`interval_trace` records,
-        else nothing."""
-        if self._tracing:
-            return torch.profiler.record_function(name)
-        return contextlib.nullcontext()
-
     def _split_phase_fold(self, sp2, jF, flags) -> List[torch.Tensor]:
         """Split-phase current fold: send the frontier deposits' strips, run
         the interior deposit while they travel, fold the arrivals in after
@@ -948,21 +942,21 @@ class ShardedRuntime(_StragglerMixin):
         n_dev = self.n_devices
 
         def interior(d):
-            with self._span(f"split_phase:interior:d{d}"):
+            with _trace.span(f"split_phase:interior:d{d}", device=d):
                 return particle_phase_stacked_interior(
                     sp2[d], self._dev[d]["origins"], self.local_grid,
                     shape_order=self.shape_order, frontier_flags=flags[d],
                 )
 
         if self.comm == "ring":
-            with self._span("split_phase:exchange_start"):
+            with _trace.span("split_phase:exchange_start"):
                 j_all = ring_all_gather(jF)  # (S, 3, pn, pn)
             jI = [interior(d) for d in range(n_dev)]
-            with self._span("split_phase:exchange_done"):
+            with _trace.span("split_phase:exchange_done"):
                 pass  # the gathered frontier deposits are read from here on
             out = []
             for d, tab in enumerate(self._dev):
-                with self._span(f"split_phase:fold:d{d}"):
+                with _trace.span(f"split_phase:fold:d{d}", device=d):
                     g = torch.zeros((3, self.grid.n_cells), dtype=torch.float32, device=j_all[d].device)
                     g.index_add_(1, tab["cmap_all"], j_all[d].transpose(0, 1).reshape(3, -1))
                     # interior deposits sit >= halo inside their own box,
@@ -973,15 +967,15 @@ class ShardedRuntime(_StragglerMixin):
         for d, tab in enumerate(self._dev):
             flat = jF[d].transpose(0, 1).reshape(-1)  # channel-major
             payloads.append({o: flat[tab[f"fold_send_{o}"]] for o in self._offsets})
-        with self._span("split_phase:exchange_start"):
+        with _trace.span("split_phase:exchange_start"):
             handle = neighbor_exchange_start(payloads)
         accs = [(jF[d] + interior(d)).transpose(0, 1).contiguous() for d in range(n_dev)]
-        with self._span("split_phase:exchange_done"):
+        with _trace.span("split_phase:exchange_done"):
             arrivals = neighbor_exchange_done(handle)
         fold = self._strip_fold("fold")
         out = []
         for d, acc in enumerate(accs):
-            with self._span(f"split_phase:fold:d{d}"):
+            with _trace.span(f"split_phase:fold:d{d}", device=d):
                 for o in sorted(arrivals[d]):
                     acc = fold(acc, o, arrivals[d][o], d)
             out.append(acc.transpose(0, 1))
@@ -990,14 +984,20 @@ class ShardedRuntime(_StragglerMixin):
     def _step(self, tiles, species, t):
         """One step on every device; returns the new state and the step's
         per-device history rows."""
+        with _trace.step(self._trace_on):
+            return self._step_body(tiles, species, t)
+
+    def _step_body(self, tiles, species, t):
         n_dev = self.n_devices
-        padded = self._halo_paste(tiles)
+        on = self._trace_on
+        with _trace.span("pic.halo", on):
+            padded = self._halo_paste(tiles)
         sp2, j3, counts, work, flags = [], [], [], [], []
         for d in range(n_dev):
             tab = self._dev[d]
             sp_in = tuple(self._particles(d, sp, s) for s, sp in enumerate(species[d]))
             if self.overlap:
-                with self._span(f"split_phase:frontier:d{d}"):
+                with _trace.span(f"split_phase:frontier:d{d}", device=d):
                     out_sp, j, c, fl = particle_phase_stacked_frontier(
                         padded[d], sp_in, tab["origins"], self.local_grid,
                         domain_grid=self.grid, shape_order=self.shape_order,
@@ -1007,7 +1007,8 @@ class ShardedRuntime(_StragglerMixin):
                 w = box_work_counters(c, self.grid)
             elif self.engine_backend == "cuda":
                 out_sp, j, c, w = particle_phase_slots(
-                    padded[d], sp_in, tab["origins"], self.local_grid, domain_grid=self.grid
+                    padded[d], sp_in, tab["origins"], self.local_grid, domain_grid=self.grid,
+                    logical_device=d,
                 )
             else:
                 out_sp, j, c = particle_phase_stacked(
@@ -1019,11 +1020,12 @@ class ShardedRuntime(_StragglerMixin):
             j3.append(j)
             counts.append(c)
             work.append(w)
-        jp = self._split_phase_fold(sp2, j3, flags) if self.overlap else self._current_fold(j3)
+        with _trace.span("pic.fold", on):
+            jp = self._split_phase_fold(sp2, j3, flags) if self.overlap else self._current_fold(j3)
         new_tiles = [
             field_phase_stacked(
                 padded[d], jp[d], self._dev[d]["statics"], t[d], self.local_grid,
-                self.halo, laser=self.laser,
+                self.halo, laser=self.laser, logical_device=d,
             )
             for d in range(n_dev)
         ]
@@ -1034,27 +1036,29 @@ class ShardedRuntime(_StragglerMixin):
         ke = [0.0] * n_dev
         exchange = self._exchange_ring if self.comm == "ring" else self._exchange_neighbor
         for s in range(len(self._qm)):
-            for d, (out, alive_s, dropped_s, demand_s) in enumerate(
-                exchange([sp2[d][s] for d in range(n_dev)], s)
-            ):
-                new_species[d].append(out)
-                alive[d] = alive[d] + alive_s
-                dropped[d] = dropped[d] + dropped_s
-                demand[d].append(demand_s)
-                q = self._particles(d, out, s)
-                e = q.w * q.m * (q.gamma() - 1.0)
-                ke[d] = ke[d] + torch.where(q.alive, e, 0.0).sum(1)
+            with _trace.span("pic.exchange", on):
+                moved = exchange([sp2[d][s] for d in range(n_dev)], s)
+            with _trace.span("pic.diag", on):
+                for d, (out, alive_s, dropped_s, demand_s) in enumerate(moved):
+                    new_species[d].append(out)
+                    alive[d] = alive[d] + alive_s
+                    dropped[d] = dropped[d] + dropped_s
+                    demand[d].append(demand_s)
+                    q = self._particles(d, out, s)
+                    e = q.w * q.m * (q.gamma() - 1.0)
+                    ke[d] = ke[d] + torch.where(q.alive, e, 0.0).sum(1)
         dv = float(np.float32(0.5 * self.grid.dz * self.grid.dx))
         rows = []
-        for d in range(n_dev):
-            fe = torch.sum(new_tiles[d] ** 2, dim=(1, 2, 3)) * dv
-            rows.append(
-                (
-                    torch.stack([counts[d], work[d], fe, ke[d]]),
-                    torch.stack([alive[d], dropped[d]]).to(torch.int32),
-                    torch.stack(demand[d]),
+        with _trace.span("pic.diag", on):
+            for d in range(n_dev):
+                fe = torch.sum(new_tiles[d] ** 2, dim=(1, 2, 3)) * dv
+                rows.append(
+                    (
+                        torch.stack([counts[d], work[d], fe, ke[d]]),
+                        torch.stack([alive[d], dropped[d]]).to(torch.int32),
+                        torch.stack(demand[d]),
+                    )
                 )
-            )
         return new_tiles, [tuple(sp) for sp in new_species], rows
 
     @property
@@ -1163,13 +1167,9 @@ class ShardedRuntime(_StragglerMixin):
 
         self.flush()
         n = int(n_steps) if n_steps else max(1, self.lb_interval)
-        self._tracing = True
-        try:
-            with profile(activities=[ProfilerActivity.CPU]) as prof:
-                self.run(n)
-                self.flush()
-        finally:
-            self._tracing = False
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            self.run(n)
+            self.flush()
         spans = [
             (e.name, e.time_range.start, e.time_range.end)
             for e in prof.events()
@@ -1194,7 +1194,8 @@ class ShardedRuntime(_StragglerMixin):
             "mig_keys": self._mig_keys(),
         }
         t0 = time.perf_counter()
-        self._pipe.enqueue(self._interval, n_steps, self.t, meta=meta)
+        with _trace.span("dlb.issue", step=self.step_idx):
+            self._pipe.enqueue(self._interval, n_steps, self.t, meta=meta)
         self._host_s["dispatch"] += time.perf_counter() - t0
         self.host_dispatches += 1
         self.step_idx += n_steps
@@ -1214,6 +1215,13 @@ class ShardedRuntime(_StragglerMixin):
         if harvested is None:
             return
         host, meta = harvested
+        with _trace.span("dlb.book", step=meta["step_idx"]):
+            self._book(host, meta, t1)
+
+    def _book(self, host, meta: Dict, t1: float) -> None:
+        """Decode a harvested round's history, fold it into the host
+        bookkeeping and run the balancer if the round opened an LB interval
+        (``t1``: when the harvest began, for the fetch's clock)."""
         host = self._decode(host)
         t2 = time.perf_counter()
         self._host_s["fetch"] += t2 - t1
@@ -1236,25 +1244,27 @@ class ShardedRuntime(_StragglerMixin):
         self.history["kinetic_energy"].extend(float(v) for v in host["kinetic_energy"].sum(axis=1))
 
         if meta["lb_due"]:
-            # row 0 is the round-boundary step: what per-step execution
-            # would have fed the balancer
-            self._observe_straggler(work_box[0], mapping)
-            new_mapping = self.balancer.step(
-                step_idx,
-                work_box[0],
-                box_coords=self.decomp.coords,
-                box_bytes=self.decomp.box_bytes(counts_box[0]),
-            )
+            with _trace.span("dlb.decide"):
+                # row 0 is the round-boundary step: what per-step
+                # execution would have fed the balancer
+                self._observe_straggler(work_box[0], mapping)
+                new_mapping = self.balancer.step(
+                    step_idx,
+                    work_box[0],
+                    box_coords=self.decomp.coords,
+                    box_bytes=self.decomp.box_bytes(counts_box[0]),
+                )
+                if new_mapping is not None:
+                    new_mapping = self._equalize(new_mapping, work_box[0])
+                    if self.comm == "neighbor":
+                        new_mapping = locality_repair(
+                            new_mapping,
+                            work_box[0],
+                            self._home_dev,
+                            self.n_devices,
+                            max_shift=self.locality_shift,
+                        )
             if new_mapping is not None:
-                new_mapping = self._equalize(new_mapping, work_box[0])
-                if self.comm == "neighbor":
-                    new_mapping = locality_repair(
-                        new_mapping,
-                        work_box[0],
-                        self._home_dev,
-                        self.n_devices,
-                        max_shift=self.locality_shift,
-                    )
                 self.balancer.mapping = new_mapping
                 self.history["lb_steps"].append(step_idx)
                 self._recommit(new_mapping)
@@ -1303,6 +1313,10 @@ class ShardedRuntime(_StragglerMixin):
         round's output, one interval after the counters that motivated it.
         With ``strict_syncs`` it and the tables' upload run under sync-debug
         mode "error": neither may wait on the round in flight."""
+        with _trace.span("dlb.adopt"):
+            self._permute_slots(new_mapping)
+
+    def _permute_slots(self, new_mapping: np.ndarray) -> None:
         S, bpd = self.grid.n_boxes, self._bpd
         old_slot_of_box = np.empty(S, np.int64)
         old_slot_of_box[self._slot_box] = np.arange(S)

@@ -24,11 +24,12 @@ it builds the step).  The kernels' in-kernel counters sum to exactly
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import _trace
 from ..pic.fields import Fields
 from ..pic.grid import Grid2D
 from ..pic.particles import Particles
@@ -180,57 +181,62 @@ def pic_substep_body(
     place, and they are released as soon as they are consumed (about 2 GB
     each at the full-size run).
     """
-    b = bin_particles(p, grid, cap)
-    tiles = field_tiles(f, grid)
-    qm = p.q / p.m
-    sz, sx, ux, uy, uz = b.sz, b.sx, b.ux, b.uy, b.uz
-    cnt_push = gather_push_move_(
-        b.counts, sz, sx, ux, uy, uz, tiles, grid=grid, qm=qm, dt=dt, tile=tile
-    )
-    del tiles
+    dev = p.z.device
+    with _trace.span("pic.bin", dev):
+        b = bin_particles(p, grid, cap)
+    with _trace.span("pic.push", dev):
+        tiles = field_tiles(f, grid)
+        qm = p.q / p.m
+        sz, sx, ux, uy, uz = b.sz, b.sx, b.ux, b.uy, b.uz
+        cnt_push = gather_push_move_(
+            b.counts, sz, sx, ux, uy, uz, tiles, grid=grid, qm=qm, dt=dt, tile=tile
+        )
+        del tiles
     w = b.w
     b = b._replace(sz=None, sx=None, ux=None, uy=None, uz=None, w=None)
 
     # deposition values at the new momenta/positions (direct deposition)
-    gamma = torch.sqrt(1.0 + ux**2 + uy**2 + uz**2)
-    slot_live = torch.arange(cap, device=sz.device)[None, :] < b.counts[:, None]
-    qw = p.q * w
-    del w
-    coef = torch.where(slot_live, qw, torch.zeros_like(qw)) / (gamma * (grid.dz * grid.dx))
-    del qw, gamma, slot_live
-    jx_t, jy_t, jz_t, cnt_dep = deposit_local_tiles(
-        b.counts, sz, sx, coef * ux, coef * uy, coef * uz, grid=grid, tile=tile
-    )
-    del coef
-    jx = assemble_grid(jx_t, grid)
-    jy = assemble_grid(jy_t, grid)
-    jz = assemble_grid(jz_t, grid)
-    del jx_t, jy_t, jz_t
-    counters = cnt_push + cnt_dep
+    with _trace.span("pic.deposit", dev):
+        gamma = torch.sqrt(1.0 + ux**2 + uy**2 + uz**2)
+        slot_live = torch.arange(cap, device=sz.device)[None, :] < b.counts[:, None]
+        qw = p.q * w
+        del w
+        coef = torch.where(slot_live, qw, torch.zeros_like(qw)) / (gamma * (grid.dz * grid.dx))
+        del qw, gamma, slot_live
+        jx_t, jy_t, jz_t, cnt_dep = deposit_local_tiles(
+            b.counts, sz, sx, coef * ux, coef * uy, coef * uz, grid=grid, tile=tile
+        )
+        del coef
+        jx = assemble_grid(jx_t, grid)
+        jy = assemble_grid(jy_t, grid)
+        jz = assemble_grid(jz_t, grid)
+        del jx_t, jy_t, jz_t
+        counters = cnt_push + cnt_dep
 
     # un-bin: map the binned state back to the original particle order;
     # particles that were not binned keep their state (frozen for a step)
-    tables = device_tables(grid, sz.device)
-    slot = torch.clamp(b.slot_of_particle, 0, grid.n_boxes * cap - 1)
-    slot_box = slot // cap
+    with _trace.span("pic.unbin", dev):
+        tables = device_tables(grid, sz.device)
+        slot = torch.clamp(b.slot_of_particle, 0, grid.n_boxes * cap - 1)
+        slot_box = slot // cap
 
-    def unbin(binned: torch.Tensor, fallback: torch.Tensor) -> torch.Tensor:
-        return torch.where(b.valid, binned.reshape(-1)[slot], fallback)
+        def unbin(binned: torch.Tensor, fallback: torch.Tensor) -> torch.Tensor:
+            return torch.where(b.valid, binned.reshape(-1)[slot], fallback)
 
-    z_new = unbin(sz, p.z / grid.dz) - HALO + tables.origin_z[slot_box]
-    x_new = unbin(sx, p.x / grid.dx) - HALO + tables.origin_x[slot_box]
-    del sz, sx
-    z_new = z_new * grid.dz
-    x_new = x_new * grid.dx
-    inside = (z_new >= 0.0) & (z_new < grid.lz) & (x_new >= 0.0) & (x_new < grid.lx)
-    new_p = p._replace(
-        z=torch.where(b.valid, z_new, p.z),
-        x=torch.where(b.valid, x_new, p.x),
-        ux=unbin(ux, p.ux),
-        uy=unbin(uy, p.uy),
-        uz=unbin(uz, p.uz),
-        alive=p.alive & torch.where(b.valid, inside, p.alive),
-    )
+        z_new = unbin(sz, p.z / grid.dz) - HALO + tables.origin_z[slot_box]
+        x_new = unbin(sx, p.x / grid.dx) - HALO + tables.origin_x[slot_box]
+        del sz, sx
+        z_new = z_new * grid.dz
+        x_new = x_new * grid.dx
+        inside = (z_new >= 0.0) & (z_new < grid.lz) & (x_new >= 0.0) & (x_new < grid.lx)
+        new_p = p._replace(
+            z=torch.where(b.valid, z_new, p.z),
+            x=torch.where(b.valid, x_new, p.x),
+            ux=unbin(ux, p.ux),
+            uy=unbin(uy, p.uy),
+            uz=unbin(uz, p.uz),
+            alive=p.alive & torch.where(b.valid, inside, p.alive),
+        )
     return new_p, (jx, jy, jz), counters, b.counts, b.n_dropped
 
 
@@ -247,6 +253,7 @@ def particle_phase_slots(
     *,
     domain_grid: Grid2D,
     tile: int = DEPOSIT_TILE,
+    logical_device: Optional[int] = None,
 ):
     """The kernels' form of ``pic.engine.particle_phase_stacked``.
 
@@ -264,14 +271,17 @@ def particle_phase_slots(
     ``box_work_counters(counts_pre, domain_grid)`` bitwise.  The push runs
     on fresh ``sz``/``sx`` and on copies of the momenta, because the kernel
     pushes the dead lanes of executed chunks too, and those lanes keep
-    their old state.
+    their old state.  ``logical_device`` names the slots' logical device in
+    the ``pic.push``, ``pic.deposit`` and ``pic.unbin`` spans (the last:
+    the per-lane write-back of the new state).
     """
     grid = local_grid
     pnz, pnx = grid.box_nz, grid.box_nx
     tile_shape = (pnz, pnx)
     slots = tiles6.shape[0]
     dev = tiles6.device
-    field_tiles6 = tuple(tiles6[:, i].contiguous() for i in range(6))
+    with _trace.span("pic.push", dev, device=logical_device):
+        field_tiles6 = tuple(tiles6[:, i].contiguous() for i in range(6))
     oz = origins[:, 0:1]
     ox = origins[:, 1:2]
     inv_vol = 1.0 / (domain_grid.dz * domain_grid.dx)
@@ -281,45 +291,48 @@ def particle_phase_slots(
     work = torch.zeros(slots, dtype=torch.int32, device=dev)
     out_species = []
     for p in species:
-        counts_pre = p.alive.sum(1).to(torch.int32)
-        sz = (p.z - oz) / grid.dz
-        sx = (p.x - ox) / grid.dx
-        ux, uy, uz = p.ux.clone(), p.uy.clone(), p.uz.clone()
-        cnt_push = gather_push_move_(
-            counts_pre, sz, sx, ux, uy, uz, field_tiles6,
-            grid=grid, qm=p.q / p.m, dt=float(grid.dt), tile=tile, tile_shape=tile_shape,
-        )
-        # back to the domain frame; kill leavers (they keep the new state,
-        # as advance_positions does; dead lanes keep their old state)
-        z_new = sz * grid.dz + oz
-        x_new = sx * grid.dx + ox
-        inside = (
-            (z_new >= 0.0) & (z_new < domain_grid.lz)
-            & (x_new >= 0.0) & (x_new < domain_grid.lx)
-        )
-        alive_new = p.alive & inside
-        del inside
-        # direct order-3 deposition at the new positions and momenta
-        gamma = torch.sqrt(1.0 + ux**2 + uy**2 + uz**2)
-        coef = torch.where(alive_new, p.q * p.w * inv_vol, 0.0) / gamma
-        del gamma
-        jx_t, jy_t, jz_t, cnt_dep = deposit_local_tiles(
-            counts_pre, sz, sx, coef * ux, coef * uy, coef * uz,
-            grid=grid, tile=tile, tile_shape=tile_shape,
-            cells_per_box=domain_grid.cells_per_box,
-        )
-        del coef, sz, sx
-        j3 = j3 + torch.stack([jx_t, jy_t, jz_t], dim=1)
-        counts = counts + alive_new.sum(1).to(torch.float32)
-        work = work + cnt_push + cnt_dep
-        out_species.append(
-            p._replace(
-                z=torch.where(p.alive, z_new, p.z),
-                x=torch.where(p.alive, x_new, p.x),
-                ux=torch.where(p.alive, ux, p.ux),
-                uy=torch.where(p.alive, uy, p.uy),
-                uz=torch.where(p.alive, uz, p.uz),
-                alive=alive_new,
+        with _trace.span("pic.push", dev, device=logical_device):
+            counts_pre = p.alive.sum(1).to(torch.int32)
+            sz = (p.z - oz) / grid.dz
+            sx = (p.x - ox) / grid.dx
+            ux, uy, uz = p.ux.clone(), p.uy.clone(), p.uz.clone()
+            cnt_push = gather_push_move_(
+                counts_pre, sz, sx, ux, uy, uz, field_tiles6,
+                grid=grid, qm=p.q / p.m, dt=float(grid.dt), tile=tile, tile_shape=tile_shape,
             )
-        )
+        with _trace.span("pic.deposit", dev, device=logical_device):
+            # back to the domain frame; kill leavers (they keep the new
+            # state, as advance_positions does; dead lanes keep their old state)
+            z_new = sz * grid.dz + oz
+            x_new = sx * grid.dx + ox
+            inside = (
+                (z_new >= 0.0) & (z_new < domain_grid.lz)
+                & (x_new >= 0.0) & (x_new < domain_grid.lx)
+            )
+            alive_new = p.alive & inside
+            del inside
+            # direct order-3 deposition at the new positions and momenta
+            gamma = torch.sqrt(1.0 + ux**2 + uy**2 + uz**2)
+            coef = torch.where(alive_new, p.q * p.w * inv_vol, 0.0) / gamma
+            del gamma
+            jx_t, jy_t, jz_t, cnt_dep = deposit_local_tiles(
+                counts_pre, sz, sx, coef * ux, coef * uy, coef * uz,
+                grid=grid, tile=tile, tile_shape=tile_shape,
+                cells_per_box=domain_grid.cells_per_box,
+            )
+            del coef, sz, sx
+            j3 = j3 + torch.stack([jx_t, jy_t, jz_t], dim=1)
+            counts = counts + alive_new.sum(1).to(torch.float32)
+            work = work + cnt_push + cnt_dep
+        with _trace.span("pic.unbin", dev, device=logical_device):
+            out_species.append(
+                p._replace(
+                    z=torch.where(p.alive, z_new, p.z),
+                    x=torch.where(p.alive, x_new, p.x),
+                    ux=torch.where(p.alive, ux, p.ux),
+                    uy=torch.where(p.alive, uy, p.uy),
+                    uz=torch.where(p.alive, uz, p.uz),
+                    alive=alive_new,
+                )
+            )
     return tuple(out_species), j3, counts, work.to(torch.float32)

@@ -42,6 +42,7 @@ from typing import Any, Callable, Deque, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import _trace
 from .._device import map_tensors
 from .deposition import box_particle_counts, box_work_counters, deposit_current
 from .fields import Fields, apply_sponge, field_energy, step_b_half, step_e
@@ -151,6 +152,11 @@ def field_phase(
     profile times a time-dependent scalar, ``LaserAntenna.inject_profile``)
     for tiles whose frame differs from the global grid; without it the
     antenna injects on its global row."""
+    with _trace.span("pic.field", fields.ex.device):
+        return _field_phase(fields, j, grid, sponge, laser, t, laser_profile)
+
+
+def _field_phase(fields: Fields, j, grid: Grid2D, sponge, laser, t, laser_profile) -> Fields:
     fields = step_b_half(fields, grid)
     fields = step_e(fields, j, grid)
     fields = step_b_half(fields, grid)
@@ -344,6 +350,7 @@ def field_phase_stacked(
     halo: int,
     *,
     laser=None,
+    logical_device: Optional[int] = None,
 ) -> torch.Tensor:
     """Slot-batched :func:`field_phase` on padded tiles, keeping interiors.
 
@@ -352,17 +359,14 @@ def field_phase_stacked(
     and laser profile.  Returns the advanced ``(slots, 6, bnz, bnx)``
     interiors: with ``halo >= 4`` the three one-cell-deep leapfrog updates
     never reach the interior from the tile edge, so it matches the global
-    solver to f32 rounding."""
-    f = field_phase(
-        Fields(*tiles6.unbind(1)),
-        tuple(j3.unbind(1)),
-        local_grid,
-        sponge=static2[:, 0],
-        laser=laser,
-        t=t,
-        laser_profile=static2[:, 1],
-    )
-    return torch.stack(f, 1)[:, :, halo:-halo, halo:-halo].contiguous()
+    solver to f32 rounding.  ``logical_device`` names the slots' logical
+    device in the ``pic.field`` span."""
+    with _trace.span("pic.field", tiles6.device, device=logical_device):
+        f = _field_phase(
+            Fields(*tiles6.unbind(1)), tuple(j3.unbind(1)), local_grid,
+            static2[:, 0], laser, t, static2[:, 1],
+        )
+        return torch.stack(f, 1)[:, :, halo:-halo, halo:-halo].contiguous()
 
 
 def build_step_body(
@@ -388,6 +392,10 @@ def build_step_body(
         kops.device_tables(grid, device)  # the one host->device copy, up front
 
     def step(fields: Fields, species: Tuple[Particles, ...], t: torch.Tensor):
+        with _trace.step(fields.ex.device):
+            return body(fields, species, t)
+
+    def body(fields: Fields, species: Tuple[Particles, ...], t: torch.Tensor):
         dev = fields.ex.device
         jx = torch.zeros(grid.shape, dtype=torch.float32, device=dev)
         jy = torch.zeros(grid.shape, dtype=torch.float32, device=dev)
@@ -415,14 +423,15 @@ def build_step_body(
             work = box_work_counters(counts, grid)
             per_species = [box_particle_counts(p, grid) for p in species]
         fields = field_phase(fields, (jx, jy, jz), grid, sponge=sponge, laser=laser, t=t)
-        out = StepOutputs(
-            counts=counts,
-            work=work,
-            field_energy=field_energy(fields, grid),
-            kinetic_energy=sum(kinetic_energy(p) for p in species),
-            dropped=dropped,
-            species_counts=torch.stack(per_species),
-        )
+        with _trace.span("pic.diag", dev):
+            out = StepOutputs(
+                counts=counts,
+                work=work,
+                field_energy=field_energy(fields, grid),
+                kinetic_energy=sum(kinetic_energy(p) for p in species),
+                dropped=dropped,
+                species_counts=torch.stack(per_species),
+            )
         return fields, species, out
 
     return step

@@ -32,6 +32,11 @@ Cost strategies (paper §2.2):
                           timestamps, a CUPTI activity record's analogue).
 
 ``fused=False`` runs one step at a time with a fetch per step.
+
+Under ``torch.profiler`` the loop's parts are spans (``repro_torch._trace``):
+``dlb.issue`` around each interval's issue, its ``pic.*`` steps inside,
+then ``dlb.book`` after the fetch, with ``dlb.measure`` and ``dlb.decide``
+in it on an LB round.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import _trace
 from .._device import CudaEventClock, resolve_device, sync_free_region
 from ..core import ActivityLedger, HeuristicCost, LoadBalancer, VirtualCluster, WorkCounterCost
 from ..kernels.constants import DEPOSIT_TILE
@@ -175,12 +181,15 @@ class Simulation:
             "kinetic_energy": [],
             "max_over_avg": [],
         }
-        self.wall_t0 = time.perf_counter()
 
     # ------------------------------------------------------------------
     def measure_costs(self, counts: np.ndarray, work: Optional[np.ndarray] = None) -> np.ndarray:
         """Per-box costs under the configured strategy (paper §2.2).
         ``work`` is the counter row already fetched with the history."""
+        with _trace.span("dlb.measure"):
+            return self._measure_costs(counts, work)
+
+    def _measure_costs(self, counts: np.ndarray, work: Optional[np.ndarray]) -> np.ndarray:
         strategy = self.config.cost_strategy
         if strategy == "heuristic":
             return self._heuristic.measure(
@@ -289,29 +298,33 @@ class Simulation:
 
     def _run_chunk(self, n_steps: int, progress_every: int) -> None:
         """One device-resident interval + the single fetch of its history."""
-        t0 = self._t_now()
-        with sync_free_region(self.config.strict_syncs and self.device.type == "cuda"):
-            self.fields, self.species, outs = self._interval_fn(
-                self.fields, self.species, t0, n_steps
-            )
+        with _trace.span("dlb.issue", step=self.step_idx):
+            t0 = self._t_now()
+            with sync_free_region(self.config.strict_syncs and self.device.type == "cuda"):
+                self.fields, self.species, outs = self._interval_fn(
+                    self.fields, self.species, t0, n_steps
+                )
         host = self._fetch(outs)
         self.last_outputs = host
-        self._absorb_outputs(
-            host.counts, host.work, host.field_energy, host.kinetic_energy,
-            progress_every, dropped=host.dropped,
-        )
-
-    def _run_per_step(self, n_steps: int, progress_every: int) -> None:
-        for _ in range(n_steps):
-            self.fields, self.species, out = self._step_body(
-                self.fields, self.species, self._t_now()
-            )
-            host = self._fetch(StepOutputs(*(t[None] for t in out)))  # per-step sync
-            self.last_outputs = host
+        with _trace.span("dlb.book", step=self.step_idx):
             self._absorb_outputs(
                 host.counts, host.work, host.field_energy, host.kinetic_energy,
                 progress_every, dropped=host.dropped,
             )
+
+    def _run_per_step(self, n_steps: int, progress_every: int) -> None:
+        for _ in range(n_steps):
+            with _trace.span("dlb.issue", step=self.step_idx):
+                self.fields, self.species, out = self._step_body(
+                    self.fields, self.species, self._t_now()
+                )
+            host = self._fetch(StepOutputs(*(t[None] for t in out)))  # per-step sync
+            self.last_outputs = host
+            with _trace.span("dlb.book", step=self.step_idx):
+                self._absorb_outputs(
+                    host.counts, host.work, host.field_energy, host.kinetic_energy,
+                    progress_every, dropped=host.dropped,
+                )
 
     # -- shared host-side bookkeeping --------------------------------------
     def _absorb_outputs(
@@ -337,12 +350,13 @@ class Simulation:
         if cfg.lb_enabled and self.balancer.should_run(self.step_idx):
             lb_called = True
             measured = self.measure_costs(counts[0], work=work[0])
-            new_mapping = self.balancer.step(
-                self.step_idx,
-                measured,
-                box_coords=self.decomp.coords,
-                box_bytes=self.decomp.box_bytes(counts[0]),
-            )
+            with _trace.span("dlb.decide"):
+                new_mapping = self.balancer.step(
+                    self.step_idx,
+                    measured,
+                    box_coords=self.decomp.coords,
+                    box_bytes=self.decomp.box_bytes(counts[0]),
+                )
             if new_mapping is not None:
                 bytes_moved = self.balancer.events[-1].bytes_moved
                 self.history["lb_steps"].append(self.step_idx)
@@ -389,7 +403,3 @@ class Simulation:
     @property
     def mean_efficiency(self) -> float:
         return float(np.mean(self.history["efficiency"])) if self.history["efficiency"] else 1.0
-
-    @property
-    def host_walltime(self) -> float:
-        return time.perf_counter() - self.wall_t0
