@@ -23,12 +23,16 @@ Phases (any failure exits non-zero before the result line):
      the default span's results.  Times each kernel's launch alone (spans
      and outputs prepared before the window) and its plain version with
      CUDA events (median of 10 after a warm-up), the in-place push on
-     copies made once, on both orders of the electrons;
+     copies made once, on both orders of the electrons.  The deposition
+     kernel's momenta form, which the PIC step runs, is held on every case
+     to the glue it replaced plus the values form (counters bitwise, J
+     within 2e-5·max|J|), and on the main cases its launch alone and its
+     entry are timed against that glue and the values form's entry;
   3. main path: ``Simulation.run`` of the laser-ion problem on the paper's
      1920² grid (64² boxes, mass ratio 1836, 16 particles per cell per
      species) for 20 steps (2 LB rounds), every interval under
      ``torch.cuda.set_sync_debug_mode("error")``; each kernel must launch
-     steps x species times, and the fetched work counters must equal
+     steps x species times, every deposition in the momenta form, and the fetched work counters must equal
      ``box_work_counters`` of the fetched per-species counts; then one more
      interval under ``torch.profiler`` prints where the step's time goes,
      with each kernel's device time per launch;
@@ -41,7 +45,9 @@ Phases (any failure exits non-zero before the result line):
         reference's five slot geometries at 64² boxes: counters bitwise and
         equal to ``box_work_counters``, J within 2e-5·max|J|, pushed state
         within rtol 2e-5 / atol 1e-6; each launch alone timed beside its
-        bound, and the persistent grid at 72² printed;
+        bound, and the persistent grid at 72² printed; the deposition's
+        momenta form with a mask against the slot path's former glue plus
+        the values form, and both timed;
      b. 20 steps of the 1920² problem on one logical device under
         sync-debug "error": one fetch per interval, each kernel launched
         steps x species x devices times, no drops, the alive-prefix
@@ -381,13 +387,54 @@ def check_deposition(case: str, kd, pd, errs: dict) -> None:
         errs["deposition"] = max(errs["deposition"], err)
 
 
+def unfused_values(form: str, counts, u, w, q, live, volume: float):
+    """The current values the PIC step's glue computed before the
+    deposition kernel's momenta form: ``pic_substep_body``'s (binned,
+    ``lane < count``) or ``particle_phase_slots``' (slot, the mask
+    ``live``), over every lane."""
+    import torch
+
+    ux, uy, uz = u
+    gamma = torch.sqrt(1.0 + ux**2 + uy**2 + uz**2)
+    if form == "binned":
+        slot_live = torch.arange(ux.shape[1], device=ux.device)[None, :] < counts[:, None]
+        qw = q * w
+        coef = torch.where(slot_live, qw, torch.zeros_like(qw)) / (gamma * volume)
+    else:
+        coef = torch.where(live, q * w * (1.0 / volume), 0.0) / gamma
+    return [(coef * c).contiguous() for c in u]
+
+
+def momenta_scales(form: str, volume: float) -> dict:
+    """The momenta form's scales on each path."""
+    return dict(scale=1.0, volume=volume) if form == "binned" else dict(scale=1.0 / volume, volume=1.0)
+
+
+def check_fused(case: str, form: str, counts, sz, sx, u, w, q, live, volume: float, kw: dict,
+                errs: dict) -> None:
+    """The deposition kernel's momenta form against the glue it replaced
+    plus the values form: counters bitwise, J within 2e-5·max|J|."""
+    import torch
+
+    from repro_torch.kernels.deposition import deposit_local_tiles, deposit_local_tiles_from_momenta
+
+    fused = deposit_local_tiles_from_momenta(
+        counts, sz, sx, *u, w, q=q, live=live, **momenta_scales(form, volume), **kw
+    )
+    unfused = deposit_local_tiles(counts, sz, sx, *unfused_values(form, counts, u, w, q, live, volume), **kw)
+    torch.cuda.synchronize()
+    check_deposition(f"{case}, {form} momenta form", fused, unfused, errs)
+
+
 def kernel_phase(sim, record: dict) -> None:
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.deposition import (
         deposit_local_tiles,
+        deposit_local_tiles_from_momenta,
         deposit_local_tiles_plain,
+        deposition_from_momenta_launcher,
         deposition_launcher,
     )
     from repro_torch.kernels.gather_push import (
@@ -454,6 +501,11 @@ def kernel_phase(sim, record: dict) -> None:
         pd = deposit_local_tiles_plain(*dep_args, grid=grid)
         torch.cuda.synchronize()
         check_deposition(case, kd, pd, errs)
+        # the momenta form the PIC step runs, against the glue it replaced
+        w = (0.5 + torch.rand(counts.shape + (cap,), generator=gen, device="cuda")).contiguous()
+        volume = grid.dz * grid.dx
+        check_fused(case, "binned", counts, k_out[0], k_out[1], k_out[2:5], w, e.q, None, volume,
+                    dict(grid=grid), errs)
         spans_checked = ""
         if case in ("span-boundaries", "alternate-empty"):
             # the span size reaches the kernels as a launch argument: spans of
@@ -487,7 +539,23 @@ def kernel_phase(sim, record: dict) -> None:
             gp_ms = cuda_time_ms(launch)
             launch, _ = deposition_launcher(*dep_args, grid=grid)
             dp_ms = cuda_time_ms(launch)
-            del scratch, launch
+            # the momenta form: its launch alone, its entry with the set-up,
+            # and the glue it replaced with the values form's entry
+            u_args = (counts, *k_out[:5], w)
+            u_kw = dict(q=e.q, grid=grid, **momenta_scales("binned", volume))
+            launch, _ = deposition_from_momenta_launcher(*u_args, **u_kw)
+            fused_ms = cuda_time_ms(launch)
+            fused_entry_ms = cuda_time_ms(lambda: deposit_local_tiles_from_momenta(*u_args, **u_kw))
+            unfused_ms = cuda_time_ms(lambda: deposit_local_tiles(
+                counts, k_out[0], k_out[1],
+                *unfused_values("binned", counts, k_out[2:5], w, e.q, None, volume), grid=grid,
+            ))
+            log(
+                f"kernels: {case} case, the momenta form: launch alone {fused_ms:.3f} ms (values form "
+                f"{dp_ms:.3f}), entry with its set-up {fused_entry_ms:.3f} ms; the glue it replaced "
+                f"plus deposit_local_tiles {unfused_ms:.3f} ms"
+            )
+            del scratch, launch, u_args
             if case == "main-shuffled":
                 log(
                     f"kernels: main case, each box's lanes shuffled: gather_push_move_ {gp_ms:.3f} ms, "
@@ -522,7 +590,7 @@ def kernel_phase(sim, record: dict) -> None:
                     f"{gp_bound_functional[1]}); "
                     f"deposition {dp_ms:.3f} ms (plain {dp_plain:.3f}, bound {dp_bound[0]:.4f} by {dp_bound[1]})"
                 )
-        del args, arrays, dep_args, k_out, kd, pd, v, counts, sz, sx, ux, uy, uz
+        del args, arrays, dep_args, k_out, kd, pd, v, w, counts, sz, sx, ux, uy, uz
         if case == "main-shuffled":
             binned = None  # the binned electrons (~11 GB at full size)
         torch.cuda.empty_cache()
@@ -539,7 +607,7 @@ def main_path(sim, n_species: int, record: dict) -> None:
     import numpy as np
     import torch
 
-    from repro_torch.kernels.deposition import deposit_local_tiles
+    from repro_torch.kernels.deposition import deposit_local_tiles, deposit_local_tiles_from_momenta
     from repro_torch.kernels.gather_push import gather_push_move
     from repro_torch.pic.deposition import box_work_counters
 
@@ -548,6 +616,7 @@ def main_path(sim, n_species: int, record: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
     gather_push_move.launches = 0
     deposit_local_tiles.launches = 0
+    deposit_local_tiles_from_momenta.launches = 0
     steps = 0
     for rnd in range(2):
         t0 = time.perf_counter()
@@ -568,7 +637,8 @@ def main_path(sim, n_species: int, record: dict) -> None:
             f"{n_particles * 10 / wall:.4g} particle pushes/s, "
             f"field energy {h.field_energy[-1]:.6g}, kinetic {h.kinetic_energy[-1]:.6g}"
         )
-    for fn in (gather_push_move, deposit_local_tiles):
+    # every deposition of the step is the momenta form
+    for fn in (gather_push_move, deposit_local_tiles, deposit_local_tiles_from_momenta):
         if fn.launches != steps * n_species:
             raise AssertionError(f"{fn.__name__} launched {fn.launches} times, want {steps * n_species}")
     record["gather_push"]["launches"] = gather_push_move.launches
@@ -676,7 +746,7 @@ def plain_kernels():
     """Inside: ``particle_phase_slots`` runs the kernels' plain PyTorch
     versions on the same (CUDA) tensors, for the comparisons."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.deposition import deposit_local_tiles_plain
+    from repro_torch.kernels.deposition import deposit_local_tiles_from_momenta_plain
     from repro_torch.kernels.gather_push import gather_push_move_plain
 
     def push_(counts, *arrays_and_tiles, **kw):
@@ -686,12 +756,14 @@ def plain_kernels():
             a.copy_(out)
         return cnt
 
-    saved = (ops.gather_push_move_, ops.deposit_local_tiles)
-    ops.gather_push_move_, ops.deposit_local_tiles = push_, deposit_local_tiles_plain
+    saved = (ops.gather_push_move_, ops.deposit_local_tiles_from_momenta)
+    ops.gather_push_move_, ops.deposit_local_tiles_from_momenta = (
+        push_, deposit_local_tiles_from_momenta_plain
+    )
     try:
         yield
     finally:
-        ops.gather_push_move_, ops.deposit_local_tiles = saved
+        ops.gather_push_move_, ops.deposit_local_tiles_from_momenta = saved
 
 
 def slot_case(case: str, grid, local, cap: int, gen, device):
@@ -789,7 +861,11 @@ def slot_kernel_phase(rt, record: dict) -> None:
     import torch
 
     from repro_torch.kernels._build import persistent_blocks
-    from repro_torch.kernels.deposition import deposition_launcher
+    from repro_torch.kernels.deposition import (
+        deposit_local_tiles,
+        deposition_from_momenta_launcher,
+        deposition_launcher,
+    )
     from repro_torch.kernels.gather_push import gather_push_launcher
     from repro_torch.pic.grid import Grid2D
     from repro_torch.pic.particles import Particles
@@ -797,7 +873,7 @@ def slot_kernel_phase(rt, record: dict) -> None:
     local, grid = rt.local_grid, rt.grid
     bz, bx = local.nz, local.nx
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for kernel, n_tiles in (("gather_push", 6), ("deposition", 3)):
+    for kernel, n_tiles in (("gather_push", 6), ("deposition", 3), ("deposition_from_momenta", 3)):
         blocks = persistent_blocks(kernel, bz, bx, torch.cuda.current_device())
         log(
             f"sharded: {kernel} persistent grid at {bz}x{bx} tiles: {blocks} blocks "
@@ -843,7 +919,24 @@ def slot_kernel_phase(rt, record: dict) -> None:
         f"gather_push_move_ {gp_ms:.3f} ms (bound {gp_bound[0]:.4f} by {gp_bound[1]}), "
         f"deposition {dp_ms:.3f} ms (bound {dp_bound[0]:.4f} by {dp_bound[1]})"
     )
-    del arrays, tiles, v, sz, sx, launch, tiles6, e
+    # the momenta form on the slot path: a mask that also leaves out some
+    # alive lanes, as it leaves out leavers
+    live = (e.alive & (torch.rand(e.alive.shape, generator=gen, device="cuda") > 0.01)).contiguous()
+    w, volume = e.w.contiguous(), grid.dz * grid.dx
+    dep_kw = dict(grid=local, tile_shape=(bz, bx), cells_per_box=grid.cells_per_box)
+    check_fused("full width slots", "slot", counts, sz, sx, arrays[2:], w, e.q, live, volume, dep_kw, errs)
+    launch, _ = deposition_from_momenta_launcher(
+        counts, sz, sx, *arrays[2:], w, q=e.q, live=live, **momenta_scales("slot", volume), **dep_kw
+    )
+    fused_ms = cuda_time_ms(launch)
+    unfused_ms = cuda_time_ms(lambda: deposit_local_tiles(
+        counts, sz, sx, *unfused_values("slot", counts, arrays[2:], w, e.q, live, volume), **dep_kw
+    ))
+    log(
+        f"sharded: slot shapes, the momenta form: launch alone {fused_ms:.3f} ms; the glue it "
+        f"replaced plus deposit_local_tiles {unfused_ms:.3f} ms"
+    )
+    del arrays, tiles, v, sz, sx, launch, tiles6, e, live, w
 
     # the reference's five slot geometries, scaled to 64² boxes
     g4 = Grid2D(nz=2 * grid.box_nz, nx=2 * grid.box_nx, dz=grid.dz, dx=grid.dx,
@@ -877,13 +970,14 @@ def sharded_run(rt, n_steps: int, label: str, record: dict):
     import numpy as np
     import torch
 
-    from repro_torch.kernels.deposition import deposit_local_tiles
+    from repro_torch.kernels.deposition import deposit_local_tiles, deposit_local_tiles_from_momenta
     from repro_torch.kernels.gather_push import gather_push_move
 
     n_sp = len(rt._qm)
     syncs0 = rt.host_syncs
     gather_push_move.launches = 0
     deposit_local_tiles.launches = 0
+    deposit_local_tiles_from_momenta.launches = 0
     ms = []
     for _ in range(n_steps // rt.lb_interval):
         torch.cuda.synchronize()
@@ -901,7 +995,7 @@ def sharded_run(rt, n_steps: int, label: str, record: dict):
             f"emig_demand peaks per species {peaks}"
         )
     want = n_steps * n_sp * rt.n_devices
-    for fn in (gather_push_move, deposit_local_tiles):
+    for fn in (gather_push_move, deposit_local_tiles, deposit_local_tiles_from_momenta):
         if fn.launches != want:
             raise AssertionError(f"sharded: {label}: {fn.__name__} launched {fn.launches} times, want {want}")
     record["gather_push"]["launches"] += gather_push_move.launches
@@ -1003,19 +1097,25 @@ def sharded_phase(record: dict) -> None:
 
 
 def launch_counters():
-    from repro_torch.kernels.deposition import deposit_local_tiles
+    from repro_torch.kernels.deposition import deposit_local_tiles, deposit_local_tiles_from_momenta
     from repro_torch.kernels.gather_push import gather_push_move
 
-    return {"gather_push": gather_push_move, "deposition": deposit_local_tiles}
+    return {
+        "gather_push": gather_push_move,
+        "deposition": deposit_local_tiles,
+        "deposition_from_momenta": deposit_local_tiles_from_momenta,
+    }
 
 
 def read_launches(record: dict, want: int, label: str) -> None:
     """Check that each kernel launched ``want`` times since its count was
-    zeroed, and add the launches to the JSON record."""
+    zeroed (every deposition of a step is the momenta form), and add the
+    launches to the JSON record."""
     for key, fn in launch_counters().items():
         if fn.launches != want:
             raise AssertionError(f"{label}: {fn.__name__} launched {fn.launches} times, want {want}")
-        record[key]["launches"] += fn.launches
+        if key in record:
+            record[key]["launches"] += fn.launches
 
 
 def async_phase(record: dict, smi: str) -> None:
@@ -2981,7 +3081,7 @@ def main() -> int:
 
     bzx = sim.grid.box_nz + 6
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for kernel, n_tiles in (("gather_push", 6), ("deposition", 3)):
+    for kernel, n_tiles in (("gather_push", 6), ("deposition", 3), ("deposition_from_momenta", 3)):
         blocks = persistent_blocks(kernel, bzx, bzx, torch.cuda.current_device())
         log(
             f"build: {kernel} persistent grid {blocks} blocks ({blocks / sms:g} per SM, {sms} SMs), "

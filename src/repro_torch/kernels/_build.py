@@ -48,8 +48,10 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "gather_push_launch": [_V] * 15 + [_I] * 7 + [_F] * 3 + [_V],
     "deposition_launch": [_V] * 11 + [_I] * 7 + [_V],
+    "deposition_from_momenta_launch": [_V] * 14 + [_I] * 7 + [_F] * 2 + [_V],
     "gather_push_blocks": [_I, _I, _IP],
     "deposition_blocks": [_I, _I, _IP],
+    "deposition_from_momenta_blocks": [_I, _I, _IP],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -147,9 +149,10 @@ def build_info() -> Dict[str, object]:
 
 
 def persistent_blocks(kernel: str, bz: int, bx: int, device: int) -> int:
-    """Blocks of the persistent grid that ``kernel`` (``"gather_push"`` or
-    ``"deposition"``) launches for (bz, bx) tiles on CUDA device ``device``,
-    the current one: resident blocks per SM times SMs.  Queried once per
+    """Blocks of the persistent grid that ``kernel`` (``"gather_push"``,
+    ``"deposition"`` or ``"deposition_from_momenta"``) launches for (bz,
+    bx) tiles on CUDA device ``device``, the current one: resident blocks
+    per SM times SMs.  Queried once per
     (kernel, tiles, device); the query also sets the kernel's shared-memory
     limit on that device, which its launches need."""
     key = (kernel, int(bz), int(bx), int(device))

@@ -11,7 +11,8 @@
 //
 // What bounds it on an H100: the throughput of those shared-memory atomics
 // (48 per executed lane), not device memory: the function reads 20 B per
-// executed lane and writes the tiles once.  The design spreads them over
+// executed lane (24, and a mask byte where given, in the momenta form
+// below) and writes the tiles once.  The design spreads them over
 // every SM and keeps enough warps in flight to hide their latency:
 //   * persistent blocks (resident blocks per SM x SMs, 512 threads each,
 //     two blocks per SM: 32 warps) walk the span work list of common.cuh,
@@ -39,6 +40,19 @@
 //   * staggering: Jx (0, 1/2), Jy (0, 0), Jz (1/2, 0); each term is
 //     (wz * v) * wx;
 //   * counter[b] = cells_per_box * CELL_OPS + executed_chunks * tile * DEPOSIT_OPS.
+//
+// Two forms, one template (the name holds deposition_kernel in both):
+//   * deposition_kernel<false> reads each lane's current values vx, vy, vz
+//     (the TPU kernel's contract, deposit_local_tiles);
+//   * deposition_kernel<true> computes them from the pushed momenta and
+//     weights, and only for the lanes it executes
+//     (deposit_local_tiles_from_momenta), with the glue's arithmetic:
+//       gamma = sqrtf(((1 + ux*ux) + uy*uy) + uz*uz)
+//       coef  = ((q*w)*scale) / (gamma*volume)
+//       v_k   = live ? coef*u_k : 0      (a select: NaN padding adds 0)
+//     where q is the species' charge on the device and live is the lane's
+//     byte of the optional mask, else lane < count.  The glue's
+//     elementwise passes over every padded lane fall away.
 #include "common.cuh"
 
 namespace {
@@ -81,11 +95,42 @@ __device__ __forceinline__ void flush(float* __restrict__ smem, int n, float* __
   __syncthreads();  // the tiles are zero before the next box deposits
 }
 
+// An executed lane's inputs beside its position: the current values
+// themselves (v = vx, vy, vz), or, in the momenta form, the pushed momenta
+// (v = ux, uy, uz), the weights w, the 0-d charge q, the optional mask
+// `live` (null: lane < count) and the two scales.
+struct LaneInputs {
+  const float* v[3];
+  const float* w;
+  const float* q;
+  const unsigned char* live;
+  float scale;
+  float volume;
+};
+
+template <bool kFromMomenta>
+__device__ __forceinline__ void lane_values(const LaneInputs& in, float q, size_t i, bool in_count,
+                                            float v[3]) {
+  if constexpr (kFromMomenta) {
+    const float ux = in.v[0][i], uy = in.v[1][i], uz = in.v[2][i];
+    const float gamma = sqrtf(((1.0f + ux * ux) + uy * uy) + uz * uz);
+    const float coef = ((q * in.w[i]) * in.scale) / (gamma * in.volume);
+    const bool live = in.live != nullptr ? in.live[i] != 0 : in_count;
+    v[0] = live ? coef * ux : 0.0f;
+    v[1] = live ? coef * uy : 0.0f;
+    v[2] = live ? coef * uz : 0.0f;
+  } else {
+    v[0] = in.v[0][i];
+    v[1] = in.v[1][i];
+    v[2] = in.v[2][i];
+  }
+}
+
+template <bool kFromMomenta>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 deposition_kernel(const int* __restrict__ counts, const int* __restrict__ spans,
                   const float* __restrict__ sz, const float* __restrict__ sx,
-                  const float* __restrict__ vx, const float* __restrict__ vy,
-                  const float* __restrict__ vz, float* __restrict__ jx, float* __restrict__ jy,
+                  const LaneInputs in, float* __restrict__ jx, float* __restrict__ jy,
                   float* __restrict__ jz, int* __restrict__ cnt, int n_boxes, int cap, int tile,
                   int bz, int bx, int span_chunks) {
   extern __shared__ float smem[];
@@ -104,28 +149,32 @@ deposition_kernel(const int* __restrict__ counts, const int* __restrict__ spans,
   const int spread = (threadIdx.x % 32) * (kThreads / 32) + threadIdx.x / 32;
   int first, last;
   repro::block_spans(spans[n_boxes], &first, &last);
-  int box = -1, executed = 0;
+  const float q = kFromMomenta ? in.q[0] : 0.0f;
+  int box = -1, executed = 0, count = 0;
   for (int span = first; span < last; ++span) {
     const repro::Span sp = repro::span_at(spans, counts, n_boxes, cap, tile, span_chunks, span, box);
     if (sp.box != box) {
       if (box >= 0) flush(smem, n, jx, jy, jz, cnt, box, executed * tile * repro::kDepositOps);
       box = sp.box;
       executed = 0;
+      count = counts[box];
     }
     executed += sp.chunks;
     const size_t base = static_cast<size_t>(box) * cap;
     for (int lane = sp.first_lane + spread; lane < sp.end_lane; lane += kThreads) {
       const size_t i = base + lane;
+      float v[3];
+      lane_values<kFromMomenta>(in, q, i, lane < count, v);
       const float s_z = sz[i];
       const float s_x = sx[i];
       float wz[4], wx[4];
       const int iz0 = repro::cubic_weights(s_z, wz);
       const int ix5 = repro::cubic_weights(s_x - 0.5f, wx);
-      scatter(s_jx, bz, bx, iz0, wz, ix5, wx, vx[i]);
+      scatter(s_jx, bz, bx, iz0, wz, ix5, wx, v[0]);
       const int ix0 = repro::cubic_weights(s_x, wx);
-      scatter(s_jy, bz, bx, iz0, wz, ix0, wx, vy[i]);
+      scatter(s_jy, bz, bx, iz0, wz, ix0, wx, v[1]);
       const int iz5 = repro::cubic_weights(s_z - 0.5f, wz);
-      scatter(s_jz, bz, bx, iz5, wz, ix0, wx, vz[i]);
+      scatter(s_jz, bz, bx, iz5, wz, ix0, wx, v[2]);
     }
   }
   if (box >= 0) flush(smem, n, jx, jy, jz, cnt, box, executed * tile * repro::kDepositOps);
@@ -133,12 +182,33 @@ deposition_kernel(const int* __restrict__ counts, const int* __restrict__ spans,
 
 size_t tile_bytes(int bz, int bx) { return 3 * static_cast<size_t>(bz) * bx * sizeof(float); }
 
+template <bool kFromMomenta>
+int launch(const void* counts, const void* spans, const void* sz, const void* sx,
+           const LaneInputs& in, void* jx, void* jy, void* jz, void* cnt, int n_boxes, int cap,
+           int tile, int bz, int bx, int span_chunks, int blocks, void* stream) {
+  if (n_boxes > 0) {
+    deposition_kernel<kFromMomenta>
+        <<<blocks, kThreads, tile_bytes(bz, bx), static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const int*>(counts), static_cast<const int*>(spans),
+            static_cast<const float*>(sz), static_cast<const float*>(sx), in,
+            static_cast<float*>(jx), static_cast<float*>(jy), static_cast<float*>(jz),
+            static_cast<int*>(cnt), n_boxes, cap, tile, bz, bx, span_chunks);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Persistent blocks the launcher runs for (bz, bx) tiles on the current card.
+// Persistent blocks the launchers run for (bz, bx) tiles on the current
+// card, one query per form (each sets its own shared-memory limit).
 extern "C" int deposition_blocks(int bz, int bx, int* blocks) {
   return static_cast<int>(
-      repro::persistent_grid(deposition_kernel, kThreads, tile_bytes(bz, bx), blocks));
+      repro::persistent_grid(deposition_kernel<false>, kThreads, tile_bytes(bz, bx), blocks));
+}
+
+extern "C" int deposition_from_momenta_blocks(int bz, int bx, int* blocks) {
+  return static_cast<int>(
+      repro::persistent_grid(deposition_kernel<true>, kThreads, tile_bytes(bz, bx), blocks));
 }
 
 // jx, jy, jz must hold zeros and cnt the counters' grid term; `spans` is
@@ -148,14 +218,28 @@ extern "C" int deposition_launch(const void* counts, const void* spans, const vo
                                  void* jx, void* jy, void* jz, void* cnt, int n_boxes, int cap,
                                  int tile, int bz, int bx, int span_chunks, int blocks,
                                  void* stream) {
-  if (n_boxes > 0) {
-    deposition_kernel<<<blocks, kThreads, tile_bytes(bz, bx), static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(counts), static_cast<const int*>(spans),
-        static_cast<const float*>(sz), static_cast<const float*>(sx),
-        static_cast<const float*>(vx), static_cast<const float*>(vy),
-        static_cast<const float*>(vz), static_cast<float*>(jx), static_cast<float*>(jy),
-        static_cast<float*>(jz), static_cast<int*>(cnt), n_boxes, cap, tile, bz, bx,
-        span_chunks);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const LaneInputs in{{static_cast<const float*>(vx), static_cast<const float*>(vy),
+                       static_cast<const float*>(vz)},
+                      nullptr, nullptr, nullptr, 1.0f, 1.0f};
+  return launch<false>(counts, spans, sz, sx, in, jx, jy, jz, cnt, n_boxes, cap, tile, bz, bx,
+                       span_chunks, blocks, stream);
+}
+
+// As deposition_launch, the values computed from ux, uy, uz, w, the 0-d
+// charge q and scale / volume; `live` is a byte per lane or null (lane <
+// count); `blocks` from deposition_from_momenta_blocks.
+extern "C" int deposition_from_momenta_launch(const void* counts, const void* spans,
+                                              const void* sz, const void* sx, const void* ux,
+                                              const void* uy, const void* uz, const void* w,
+                                              const void* q, const void* live, void* jx,
+                                              void* jy, void* jz, void* cnt, int n_boxes,
+                                              int cap, int tile, int bz, int bx,
+                                              int span_chunks, int blocks, float scale,
+                                              float volume, void* stream) {
+  const LaneInputs in{{static_cast<const float*>(ux), static_cast<const float*>(uy),
+                       static_cast<const float*>(uz)},
+                      static_cast<const float*>(w), static_cast<const float*>(q),
+                      static_cast<const unsigned char*>(live), scale, volume};
+  return launch<true>(counts, spans, sz, sx, in, jx, jy, jz, cnt, n_boxes, cap, tile, bz, bx,
+                      span_chunks, blocks, stream);
 }

@@ -14,6 +14,13 @@ with BZ = box_nz + 2·HALO, BX = box_nx + 2·HALO unless ``tile_shape``
 overrides them.  On the H100 the kernel is bound by its shared-memory
 atomics (48 per executed lane); its source note says how the design
 spreads them over all SMs.
+
+:func:`deposit_local_tiles_from_momenta` is the form the PIC step runs:
+the same kernel computes each executed lane's value q·w·u/γ itself from
+the pushed momenta ``ux, uy, uz`` and weights ``w`` (B, cap) f32, so no
+elementwise pass runs over the padded lanes; on CPU tensors
+:func:`deposit_local_tiles_from_momenta_plain` runs the glue in plain
+PyTorch and then :func:`deposit_local_tiles_plain`.
 """
 from __future__ import annotations
 
@@ -22,11 +29,18 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ..pic.grid import Grid2D
-from ._tensors import SPAN_CHUNKS, check_binned, plain_box_groups, span_table
+from ._tensors import SPAN_CHUNKS, check_binned, plain_box_groups, scalar_tensor, span_table
 from .common import HALO, cubic_weights
 from .constants import CELL_OPS, DEPOSIT_OPS, DEPOSIT_TILE
 
-__all__ = ["deposit_local_tiles", "deposit_local_tiles_plain", "deposition_launcher"]
+__all__ = [
+    "deposit_local_tiles",
+    "deposit_local_tiles_plain",
+    "deposition_launcher",
+    "deposit_local_tiles_from_momenta",
+    "deposit_local_tiles_from_momenta_plain",
+    "deposition_from_momenta_launcher",
+]
 
 
 def _geometry(grid: Grid2D, tile_shape, cells_per_box) -> Tuple[int, int, int]:
@@ -101,6 +115,53 @@ def deposit_local_tiles_plain(
     return tuple(j[:n_tile].view(shape) for j in (jx, jy, jz)) + (cnt,)
 
 
+def _cuda_device(t: torch.Tensor) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"the deposition kernel runs on cuda tensors, got {t.device}")
+    return t.device
+
+
+def _launcher(kernel: str, counts, arrays, extra, scalars, counted, *, grid, tile, tile_shape,
+              cells_per_box, span_chunks):
+    """One launch of ``kernel``'s form, prepared: the library's
+    ``<kernel>_launch`` takes the counts and the span table, ``arrays``,
+    the ``extra`` tensors (None: a null pointer), the zeroed tiles and the
+    counters' grid term, the geometry and the persistent grid, ``scalars``
+    and the stream.  Each ``launch()`` counts in every entry of ``counted``."""
+    from . import _build
+
+    device = _cuda_device(arrays[0])
+    n_boxes, cap = check_binned(counts, arrays, tile)
+    bz, bx, cells = _geometry(grid, tile_shape, cells_per_box)
+    counts32 = counts.to(device=device, dtype=torch.int32).contiguous()
+    spans = span_table(counts32, cap, tile, span_chunks)
+    jx, jy, jz = (
+        torch.zeros((n_boxes, bz, bx), dtype=torch.float32, device=device) for _ in range(3)
+    )
+    # the counters' grid term; the kernel adds the executed chunks' term
+    cnt = torch.full((n_boxes,), cells * CELL_OPS, dtype=torch.int32, device=device)
+    fn = getattr(_build.load_library(), f"{kernel}_launch")
+    blocks = _build.persistent_blocks(kernel, bz, bx, torch.cuda.current_device())
+    args = (
+        counts32.data_ptr(), spans.data_ptr(),
+        *(a.data_ptr() for a in arrays),
+        *(None if t is None else t.data_ptr() for t in extra),
+        jx.data_ptr(), jy.data_ptr(), jz.data_ptr(), cnt.data_ptr(),
+        n_boxes, cap, tile, bz, bx, span_chunks, blocks, *scalars,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+
+    def launch() -> None:
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"deposition kernel launch failed: cudaError {err}")
+        for entry in counted:
+            entry.launches += 1
+
+    launch.tensors = (counts32, spans, arrays, extra)  # alive while args point at them
+    return launch, (jx, jy, jz, cnt)
+
+
 def deposition_launcher(
     counts: torch.Tensor,
     sz: torch.Tensor,
@@ -121,39 +182,50 @@ def deposition_launcher(
     adds into them.  :func:`deposit_local_tiles` calls it once; apart, it
     lets a timing cover the launch alone.  ``span_chunks`` is the span size
     of the work list."""
-    from ._build import load_library, persistent_blocks
-
-    device = sz.device
-    if device.type != "cuda":
-        raise ValueError(f"the deposition kernel runs on cuda tensors, got {device}")
-    arrays = (sz, sx, vx, vy, vz)
-    n_boxes, cap = check_binned(counts, arrays, tile)
-    bz, bx, cells = _geometry(grid, tile_shape, cells_per_box)
-    counts32 = counts.to(device=device, dtype=torch.int32).contiguous()
-    spans = span_table(counts32, cap, tile, span_chunks)
-    jx, jy, jz = (
-        torch.zeros((n_boxes, bz, bx), dtype=torch.float32, device=device) for _ in range(3)
-    )
-    # the counters' grid term; the kernel adds the executed chunks' term
-    cnt = torch.full((n_boxes,), cells * CELL_OPS, dtype=torch.int32, device=device)
-    lib = load_library()
-    blocks = persistent_blocks("deposition", bz, bx, torch.cuda.current_device())
-    args = (
-        counts32.data_ptr(), spans.data_ptr(),
-        *(a.data_ptr() for a in arrays),
-        jx.data_ptr(), jy.data_ptr(), jz.data_ptr(), cnt.data_ptr(),
-        n_boxes, cap, tile, bz, bx, span_chunks, blocks,
-        torch.cuda.current_stream(device).cuda_stream,
+    return _launcher(
+        "deposition", counts, (sz, sx, vx, vy, vz), (), (), (deposit_local_tiles,),
+        grid=grid, tile=tile, tile_shape=tile_shape, cells_per_box=cells_per_box,
+        span_chunks=span_chunks,
     )
 
-    def launch() -> None:
-        err = lib.deposition_launch(*args)
-        if err != 0:
-            raise RuntimeError(f"deposition kernel launch failed: cudaError {err}")
-        deposit_local_tiles.launches += 1
 
-    launch.tensors = (counts32, spans, arrays)  # alive while args point at them
-    return launch, (jx, jy, jz, cnt)
+def deposition_from_momenta_launcher(
+    counts: torch.Tensor,
+    sz: torch.Tensor,
+    sx: torch.Tensor,
+    ux: torch.Tensor,
+    uy: torch.Tensor,
+    uz: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    q,
+    scale: float,
+    volume: float,
+    live: Optional[torch.Tensor] = None,
+    grid: Grid2D,
+    tile: int = DEPOSIT_TILE,
+    tile_shape=None,
+    cells_per_box: Optional[int] = None,
+    span_chunks: int = SPAN_CHUNKS,
+) -> Tuple[Callable[[], None], Tuple[torch.Tensor, ...]]:
+    """:func:`deposition_launcher` for the momenta form: each ``launch()``
+    runs the kernel that computes the lanes' values from ``ux, uy, uz, w``
+    (:func:`deposit_local_tiles_from_momenta` says how)."""
+    if live is not None and (
+        live.shape != sz.shape or live.dtype != torch.bool or not live.is_contiguous()
+        or live.device != sz.device
+    ):
+        raise ValueError(
+            f"live must be a contiguous bool {tuple(sz.shape)} mask on {sz.device}, got "
+            f"{tuple(live.shape)} {live.dtype} on {live.device}"
+        )
+    return _launcher(
+        "deposition_from_momenta", counts, (sz, sx, ux, uy, uz, w),
+        (scalar_tensor(q, sz.device), live), (float(scale), float(volume)),
+        (deposit_local_tiles, deposit_local_tiles_from_momenta),
+        grid=grid, tile=tile, tile_shape=tile_shape, cells_per_box=cells_per_box,
+        span_chunks=span_chunks,
+    )
 
 
 def deposit_local_tiles(
@@ -199,5 +271,95 @@ def deposit_local_tiles(
     return out
 
 
-#: launches of the CUDA kernel in this process (the plain version does not count)
+#: launches of the CUDA kernel in this process by either form (the plain
+#: versions do not count)
 deposit_local_tiles.launches = 0
+
+
+def deposit_local_tiles_from_momenta_plain(
+    counts: torch.Tensor,
+    sz: torch.Tensor,
+    sx: torch.Tensor,
+    ux: torch.Tensor,
+    uy: torch.Tensor,
+    uz: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    q,
+    scale: float,
+    volume: float,
+    live: Optional[torch.Tensor] = None,
+    grid: Grid2D,
+    tile: int = DEPOSIT_TILE,
+    tile_shape=None,
+    cells_per_box: Optional[int] = None,
+):
+    """Plain PyTorch version of the momenta form (any device): the values
+    over every lane, then :func:`deposit_local_tiles_plain`."""
+    if live is None:
+        live = torch.arange(sz.shape[1], device=sz.device)[None, :] < counts[:, None]
+    gamma = torch.sqrt(1.0 + ux**2 + uy**2 + uz**2)
+    coef = ((q * w) * scale) / (gamma * volume)
+    del gamma
+    zero = torch.zeros((), dtype=torch.float32, device=sz.device)
+    values = [torch.where(live, coef * u, zero) for u in (ux, uy, uz)]
+    del coef
+    return deposit_local_tiles_plain(
+        counts, sz, sx, *values, grid=grid, tile=tile,
+        tile_shape=tile_shape, cells_per_box=cells_per_box,
+    )
+
+
+def deposit_local_tiles_from_momenta(
+    counts: torch.Tensor,
+    sz: torch.Tensor,
+    sx: torch.Tensor,
+    ux: torch.Tensor,
+    uy: torch.Tensor,
+    uz: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    q,
+    scale: float,
+    volume: float,
+    live: Optional[torch.Tensor] = None,
+    grid: Grid2D,
+    tile: int = DEPOSIT_TILE,
+    tile_shape=None,
+    cells_per_box: Optional[int] = None,
+):
+    """:func:`deposit_local_tiles` with each lane's values computed from its
+    pushed momenta ``ux, uy, uz`` and weight ``w``, in float32:
+
+        gamma = sqrt(((1 + ux²) + uy²) + uz²)
+        coef  = ((q·w)·scale) / (gamma·volume)
+        v     = where(live, coef·u, 0)
+
+    ``q`` is the species' charge, a device tensor on the hot path (never
+    fetched to the host).  ``live`` is a bool (B, cap) mask, or None for
+    ``lane < counts``.  The binned path gives ``scale=1, volume=dz·dx``,
+    the slot path ``scale=1/(dz·dx), volume=1``: the glue each ran before,
+    operation for operation.  A lane that is not live adds zero whatever
+    its momenta or weight hold.  CUDA tensors launch the kernel, which
+    evaluates this only for the lanes it executes; CPU tensors run
+    :func:`deposit_local_tiles_from_momenta_plain`.
+    """
+    kw = dict(
+        q=q, scale=scale, volume=volume, live=live, grid=grid, tile=tile,
+        tile_shape=tile_shape, cells_per_box=cells_per_box,
+    )
+    device = sz.device
+    if device.type == "cpu":
+        return deposit_local_tiles_from_momenta_plain(counts, sz, sx, ux, uy, uz, w, **kw)
+    if device.type != "cuda":
+        raise ValueError(
+            f"deposit_local_tiles_from_momenta runs on cuda or cpu tensors, got {device}"
+        )
+    launch, out = deposition_from_momenta_launcher(counts, sz, sx, ux, uy, uz, w, **kw)
+    launch()
+    return out
+
+
+#: launches of the CUDA kernel's momenta form in this process (each also
+#: counts in ``deposit_local_tiles.launches``)
+deposit_local_tiles_from_momenta.launches = 0

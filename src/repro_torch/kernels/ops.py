@@ -8,7 +8,8 @@ Counterpart of ``repro.kernels.ops``:
   3. run the fused gather + push + move kernel on the binned arrays, in
      place,
   4. run the deposition kernel at the moved positions (the 3-cell halo
-     catches deposits of particles up to one cell outside their box),
+     catches deposits of particles up to one cell outside their box); it
+     computes each lane's current from the pushed momenta itself,
   5. scatter-add the tiles onto the global J grids (:func:`assemble_grid`)
      and un-bin the particles.
 
@@ -35,7 +36,7 @@ from ..pic.grid import Grid2D
 from ..pic.particles import Particles
 from .common import HALO
 from .constants import DEPOSIT_TILE
-from .deposition import deposit_local_tiles
+from .deposition import deposit_local_tiles_from_momenta
 from .gather_push import gather_push_move_
 
 __all__ = [
@@ -195,18 +196,14 @@ def pic_substep_body(
     w = b.w
     b = b._replace(sz=None, sx=None, ux=None, uy=None, uz=None, w=None)
 
-    # deposition values at the new momenta/positions (direct deposition)
+    # direct deposition at the new momenta/positions: the kernel computes
+    # q·w·u/γ / (dz·dx) for the lanes below each box's count
     with _trace.span("pic.deposit", dev):
-        gamma = torch.sqrt(1.0 + ux**2 + uy**2 + uz**2)
-        slot_live = torch.arange(cap, device=sz.device)[None, :] < b.counts[:, None]
-        qw = p.q * w
-        del w
-        coef = torch.where(slot_live, qw, torch.zeros_like(qw)) / (gamma * (grid.dz * grid.dx))
-        del qw, gamma, slot_live
-        jx_t, jy_t, jz_t, cnt_dep = deposit_local_tiles(
-            b.counts, sz, sx, coef * ux, coef * uy, coef * uz, grid=grid, tile=tile
+        jx_t, jy_t, jz_t, cnt_dep = deposit_local_tiles_from_momenta(
+            b.counts, sz, sx, ux, uy, uz, w,
+            q=p.q, scale=1.0, volume=grid.dz * grid.dx, grid=grid, tile=tile,
         )
-        del coef
+        del w
         jx = assemble_grid(jx_t, grid)
         jy = assemble_grid(jy_t, grid)
         jz = assemble_grid(jz_t, grid)
@@ -311,16 +308,16 @@ def particle_phase_slots(
             )
             alive_new = p.alive & inside
             del inside
-            # direct order-3 deposition at the new positions and momenta
-            gamma = torch.sqrt(1.0 + ux**2 + uy**2 + uz**2)
-            coef = torch.where(alive_new, p.q * p.w * inv_vol, 0.0) / gamma
-            del gamma
-            jx_t, jy_t, jz_t, cnt_dep = deposit_local_tiles(
-                counts_pre, sz, sx, coef * ux, coef * uy, coef * uz,
+            # direct order-3 deposition at the new positions and momenta:
+            # the kernel computes q·w·u/γ / (dz·dx) for the lanes alive_new
+            # holds, so leavers deposit nothing
+            jx_t, jy_t, jz_t, cnt_dep = deposit_local_tiles_from_momenta(
+                counts_pre, sz, sx, ux, uy, uz, p.w.contiguous(),
+                q=p.q, scale=inv_vol, volume=1.0, live=alive_new,
                 grid=grid, tile=tile, tile_shape=tile_shape,
                 cells_per_box=domain_grid.cells_per_box,
             )
-            del coef, sz, sx
+            del sz, sx
             j3 = j3 + torch.stack([jx_t, jy_t, jz_t], dim=1)
             counts = counts + alive_new.sum(1).to(torch.float32)
             work = work + cnt_push + cnt_dep

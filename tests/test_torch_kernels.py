@@ -23,8 +23,11 @@ from repro.pic.grid import Grid2D as JGrid
 from repro_torch import convert
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels._tensors import span_table
+from repro_torch.kernels import deposition as t_dep
 from repro_torch.kernels.deposition import deposit_local_tiles as t_deposit
-from repro_torch.kernels.deposition import deposition_launcher
+from repro_torch.kernels.deposition import deposit_local_tiles_from_momenta as t_deposit_u
+from repro_torch.kernels.deposition import deposit_local_tiles_plain as t_deposit_plain
+from repro_torch.kernels.deposition import deposition_from_momenta_launcher, deposition_launcher
 from repro_torch.kernels.gather_push import gather_push_move as t_gather_push
 from repro_torch.kernels.gather_push import gather_push_launcher
 from repro_torch.kernels.gather_push import gather_push_move_ as t_gather_push_
@@ -198,6 +201,10 @@ def test_launchers_refuse_cpu_tensors():
         )
     with pytest.raises(ValueError, match="cuda"):
         deposition_launcher(_to_t(counts), *arrays, grid=tg)
+    with pytest.raises(ValueError, match="cuda"):
+        deposition_from_momenta_launcher(
+            _to_t(counts), *arrays, arrays[0].clone(), q=-1.0, scale=1.0, volume=0.25, grid=tg
+        )
 
 
 @pytest.mark.parametrize("counts,spread", ADVERSARIAL)
@@ -261,6 +268,144 @@ def test_tile_shape_and_cells_per_box_overrides():
     for r, g in zip(ref_g[:5], got_g[:5]):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=2e-5, atol=1e-6)
     np.testing.assert_array_equal(got_g[5].numpy(), np.asarray(ref_g[5]))
+
+
+# the momenta form: the glue the PIC step ran before it, per path
+FORMS = ["binned", "slot"]
+
+
+def _momenta_case(counts, spread, form, seed=5):
+    """The momenta form's inputs: ``(counts, sz, sx, u, w, q, live, kw)``.
+    The slot form pads its tiles as the sharded runtime does and masks out
+    dead lanes and leavers inside the counts."""
+    pad = 2 if form == "slot" else 0
+    counts, sz, sx, vel, _ = _binned(counts, spread, pad=pad, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    w = rng.uniform(0.5, 1.5, sz.shape).astype(np.float32)
+    lane = np.arange(CAP)[None, :]
+    kw = {}
+    live = None
+    if form == "slot":
+        live = _to_t((lane < counts[:, None]) & (rng.random(sz.shape) > 0.2))
+        kw = dict(tile_shape=(8 + 2 * HALO + 2 * pad,) * 2, cells_per_box=64)
+    return counts, sz, sx, vel, w, torch.tensor(-1.0), live, kw
+
+
+def _glue_values(form, counts, u, w, q, live, grid):
+    """The current values each path's glue computed before the momenta form."""
+    ux, uy, uz = u
+    gamma = torch.sqrt(1.0 + ux**2 + uy**2 + uz**2)
+    if form == "binned":
+        slot_live = torch.arange(CAP)[None, :] < counts[:, None]
+        qw = q * w
+        coef = torch.where(slot_live, qw, torch.zeros_like(qw)) / (gamma * (grid.dz * grid.dx))
+    else:
+        coef = torch.where(live, q * w * (1.0 / (grid.dz * grid.dx)), 0.0) / gamma
+    return coef * ux, coef * uy, coef * uz
+
+
+def _scales(form, grid):
+    vol = grid.dz * grid.dx
+    return dict(scale=1.0, volume=vol) if form == "binned" else dict(scale=1.0 / vol, volume=1.0)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("counts,spread", ADVERSARIAL)
+def test_deposit_from_momenta_matches_glue_and_plain_bitwise(counts, spread, form):
+    """The momenta form equals the glue it replaced followed by the plain
+    deposition, bit for bit, on the binned path (lane < count) and on the
+    slot path (a mask that leaves out dead lanes and leavers)."""
+    _, tg = _grids()
+    counts, sz, sx, vel, w, q, live, kw = _momenta_case(counts, spread, form)
+    counts_t, u, w_t = _to_t(counts), tuple(map(_to_t, vel)), _to_t(w)
+    want = t_deposit_plain(
+        counts_t, _to_t(sz), _to_t(sx), *_glue_values(form, counts_t, u, w_t, q, live, tg),
+        grid=tg, **kw,
+    )
+    got = t_deposit_u(
+        counts_t, _to_t(sz), _to_t(sx), *u, w_t, q=q, live=live, grid=tg,
+        **_scales(form, tg), **kw,
+    )
+    for g, r in zip(got, want):
+        assert torch.equal(_bits(g), _bits(r))
+    if counts.any():
+        assert float(got[0].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_deposit_from_momenta_ignores_nan_in_lanes_not_live(form):
+    """Momenta and weights past the counts (and, on the slot path, in
+    masked lanes) may hold anything, NaN included: those lanes add zero."""
+    _, tg = _grids()
+    counts, sz, sx, vel, w, q, live, kw = _momenta_case([137, 256, 0, 490], "edges", form)
+    counts_t = _to_t(counts)
+    keep = (np.arange(CAP)[None, :] < counts[:, None]) if live is None else live.numpy()
+    args = dict(q=q, live=live, grid=tg, **_scales(form, tg), **kw)
+    clean = [np.where(keep, a, 0.0).astype(np.float32) for a in (*vel, w)]
+    noisy = [np.where(keep, a, np.nan).astype(np.float32) for a in (*vel, w)]
+    want = t_deposit_u(counts_t, _to_t(sz), _to_t(sx), *map(_to_t, clean), **args)
+    got = t_deposit_u(counts_t, _to_t(sz), _to_t(sx), *map(_to_t, noisy), **args)
+    for g, r in zip(got, want):
+        assert torch.equal(_bits(g), _bits(r))
+    assert all(bool(torch.isfinite(j).all()) for j in got[:3])
+
+
+def test_deposition_launches_counted_by_form(monkeypatch):
+    """Each launch of either form counts in ``deposit_local_tiles.launches``;
+    only the momenta form's in its own.  The launches reach a stand-in of
+    the kernel library, which converts each argument as the library's C
+    signature does."""
+    import types
+
+    from repro_torch.kernels import _build
+
+    calls = []
+
+    class Library:
+        def __getattr__(self, name):
+            def fn(*args):
+                types_ = _build._SIGNATURES[name]
+                assert len(args) == len(types_), name
+                for a, t in zip(args, types_):
+                    t.from_param(a)
+                calls.append((name, args))
+                return 0
+
+            return fn
+
+    monkeypatch.setattr(_build, "load_library", Library)
+    monkeypatch.setattr(_build, "persistent_blocks", lambda *a: 264)
+    monkeypatch.setattr(t_dep, "_cuda_device", lambda t: t.device)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(
+        torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0)
+    )
+    monkeypatch.setattr(t_dep.deposit_local_tiles, "launches", 0)
+    monkeypatch.setattr(t_dep.deposit_local_tiles_from_momenta, "launches", 0)
+    _, tg = _grids()
+    counts, sz, sx, vel, w, q, live, kw = _momenta_case([3, 0, 300, 1], "interior", "slot")
+    arrays = [_to_t(a) for a in (sz, sx, *vel)]
+    launch, _ = deposition_launcher(_to_t(counts), *arrays, grid=tg, **kw)
+
+    def launches():
+        return t_dep.deposit_local_tiles.launches, t_dep.deposit_local_tiles_from_momenta.launches
+
+    launch()
+    assert launches() == (1, 0)
+    for mask in (None, live):
+        launch, _ = deposition_from_momenta_launcher(
+            _to_t(counts), *arrays, _to_t(w), q=q, live=mask, grid=tg, **_scales("slot", tg), **kw
+        )
+        launch()
+    assert launches() == (3, 2)
+    assert [name for name, _ in calls] == ["deposition_launch"] + ["deposition_from_momenta_launch"] * 2
+    # the mask's pointer is null without a mask: the kernel then reads lane < count
+    assert calls[1][1][9] is None and calls[2][1][9] == live.data_ptr()
+    assert calls[2][1][-3:-1] == (float(1.0 / (tg.dz * tg.dx)), 1.0)
 
 
 def test_wrapper_refuses_misshapen_input():
