@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """The control of the output check: the plain reference put in the
-program's place and computed one precision lower (bfloat16 fields,
-currents, momenta and weights), judged by the same numbers as a run.
+program's place and computed one precision lower (for the PIC domain:
+bfloat16 fields, currents, momenta and weights), judged by the same
+numbers as a run.
 
     python3 portbench/control.py --workload laser_ion.sim --seeds 11 12 13
 
-prints, per seed, the readings the control gives: each compared number
-must come out above its limit on one of them at least.  The benchmark's
-own runs never run it.  ``portbench/tests/test_portbench_control.py``
-runs it at a small size on the CPU.
+prints, per seed, the readings the control gives: each cell's numbers
+must come out above their limits on one of them at least.  The control
+is the domain's (``portbench/domains/<domain>.py``, ``control``); a domain
+without one says so and exits non-zero.  The benchmark's own runs never
+run it.  ``portbench/tests/test_portbench_control.py`` runs it at a small
+size on the CPU.
 """
 from __future__ import annotations
 
@@ -22,35 +25,13 @@ if __name__ == "__main__":
 
 import torch
 
-from portbench import entries, inputs as inputs_mod, spec
-from portbench.harness import outcome_steps
-from portbench.reference import compare, pic as ref_pic
+from portbench import domains, entries, spec
 
-__all__ = ["control_outcome", "readings"]
+__all__ = ["readings", "NoControl"]
 
 
-def control_outcome(plain, traffic: dict, dtype=torch.bfloat16) -> dict:
-    """What the reference computed in ``dtype`` gives, in the form of the
-    program's outcome for the cell's entry."""
-    path = entries.module(traffic["entry"])
-    low = ref_pic.run(plain, outcome_steps(traffic), deposit_leavers=path.DEPOSIT_LEAVERS, dtype=dtype)
-    out = {
-        "fields": low["fields"],
-        "rows": [],
-        "lb": [],
-        "lb_start": "round_robin",
-        "lb_devices": 1,
-        "lb_max_boxes": None,
-        "lb_threshold": 0.0,
-        "dropped": 0,
-    }
-    if path.ORDER_KEPT:
-        out["species"] = low["species"]
-    else:
-        out["pooled"] = [
-            {k: sp[k][sp["alive"]] for k in ("z", "x", "ux", "uy", "uz")} for sp in low["species"]
-        ]
-    return out
+class NoControl(LookupError):
+    """The cell's domain has no control."""
 
 
 def readings(
@@ -58,11 +39,14 @@ def readings(
 ) -> Dict[str, float]:
     """The control's numbers for ``cell`` on ``seed``."""
     config = dict(cell.config, **(config_overrides or {}))
-    plain = inputs_mod.draw(config, seed, torch.device(device))
-    low = control_outcome(plain, cell.traffic)
-    leavers = entries.module(cell.traffic["entry"]).DEPOSIT_LEAVERS
-    ref = ref_pic.run(plain, outcome_steps(cell.traffic), deposit_leavers=leavers)
-    return compare.numbers(low, ref, plain)
+    domain = domains.module(config)
+    if not hasattr(domain, "control"):
+        raise NoControl(f"domain {domains.name(config)!r} of {cell.name} has no control")
+    path = entries.module(cell.traffic["entry"])
+    plain = domain.draw(config, seed, torch.device(device))
+    low = domain.control(plain, cell.traffic, path)
+    ref = domain.reference(plain, cell.traffic, path)
+    return domain.numbers(low, ref, plain)
 
 
 def main(argv=None) -> int:
@@ -74,7 +58,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     cell = spec.load(args.workload)
     for seed in args.seeds:
-        nums = readings(cell, seed)
+        try:
+            nums = readings(cell, seed)
+        except NoControl as e:
+            print(f"control: {e}", file=sys.stderr)
+            return 2
         shown = " ".join(f"{k}={v!r}" for k, v in nums.items())
         limits = " ".join(f"{k}<={v!r}" for k, v in cell.limits.items())
         print(f"control {cell.name} seed {seed}: {shown} | limits {limits}", flush=True)

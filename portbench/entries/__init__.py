@@ -1,23 +1,25 @@
 """The program's entry points as the benchmark drives them.
 
 A traffic file names its ``entry``; ``portbench/entries/<entry>.py`` holds a
-class ``Entry`` built from the benchmark's inputs, the configuration and
-the traffic mix, with:
+class ``Entry`` built from the domain's plain inputs, the configuration and
+the traffic mix, with what the harness calls:
 
   * ``remake()``: build the program's runtime from the inputs kept on the
     device (the start of every stretch);
-  * ``run_interval()``: advance ``interval`` steps, one LB interval,
-    through the program's own call, ending in its fetch; ``stretch_done``
-    says when the stretch of ``stretch_intervals`` intervals is complete;
-  * ``rows()``: what the program fetched for each interval of the stretch
-    (work counters, alive counts, drops);
+  * ``run_interval()``: advance ``interval`` steps through the program's
+    own call, ending in its fetch; ``stretch_done`` says when the stretch
+    of ``stretch_intervals`` intervals is complete;
+  * ``rows()``: what the program fetched for each interval of the stretch,
+    each row with ``dropped`` (work the program dropped) and ``finite``;
   * ``host_stats()``: the program's own host clocks, where it keeps them;
-  * ``tile_cells()``, ``kernel_launches(rows)``, ``alive_per_step(rows)``:
-    the cells of a kernel's field tile, each kernel launch's per-box alive
-    counts and the alive particles of each step, for the yardstick;
-  * ``outcome()``: the state the stretch produced, in the plain form
-    ``portbench.reference.compare`` judges;
+  * ``outcome()``: the state the stretch produced, in the plain form the
+    domain's ``numbers`` judges;
   * ``release()``: drop the runtime.
+
+Whatever else an entry offers is for its domain's ``context`` and
+reference: the PIC entries add ``tile_cells()``, ``kernel_launches(rows)``
+and ``alive_per_step(rows)``, and the path's semantics ``DEPOSIT_LEAVERS``
+and ``ORDER_KEPT``; ``kernel_cap`` and ``to_problem`` below serve them.
 
 This is the only place the benchmark imports the program.
 """
@@ -29,10 +31,10 @@ __all__ = ["module", "to_problem", "kernel_cap"]
 
 
 def module(name: str):
-    """``portbench/entries/<name>.py``: its ``Entry``, and the path's
-    semantics the reference follows: ``DEPOSIT_LEAVERS`` (a particle leaving
-    the domain deposits in that step) and ``ORDER_KEPT`` (particles keep
-    their input order, so they are compared one by one)."""
+    """``portbench/entries/<name>.py``: its ``Entry``, and for a PIC entry
+    the path's semantics the reference follows: ``DEPOSIT_LEAVERS`` (a
+    particle leaving the domain deposits in that step) and ``ORDER_KEPT``
+    (particles keep their input order, so they are compared one by one)."""
     return importlib.import_module(f"portbench.entries.{name}")
 
 

@@ -1,7 +1,13 @@
 """One run of one cell: inputs, set-up, the measured window, the traced
 stretch, the output check, the result.
 
-The window replays a fixed stretch: ``stretch_intervals`` LB intervals from
+The harness holds the generic loop only.  What the cell's problem is (its
+inputs, the plain reference, the numbers the check compares, what the
+per-layer readers read besides the trace) comes from the configuration's
+domain (``portbench/domains/``), and the program is driven through the
+traffic mix's entry (``portbench/entries/``).
+
+The window replays a fixed stretch: ``stretch_intervals`` intervals from
 the seeded start, each stretch on a runtime made anew from the inputs kept
 on the device since set-up.  The window holds whole stretches, re-makes
 included, and ends with the first stretch completed after ``seconds``: on
@@ -24,8 +30,7 @@ from typing import Dict, Optional
 import torch
 from torch.profiler import record_function
 
-from . import entries, inputs as inputs_mod, spec, trace as trace_mod
-from .reference import compare, pic as ref_pic
+from . import domains, entries, spec, trace as trace_mod
 
 __all__ = ["run_cell", "forbidden_modules", "FORBIDDEN"]
 
@@ -86,18 +91,18 @@ def run_cell(
     traffic = dict(cell.traffic, **(traffic_overrides or {}))
     dev = torch.device(device)
     on_card = dev.type == "cuda"
+    domain = domains.module(config)
     path = entries.module(traffic["entry"])
 
     # -- set-up: inputs, a re-make and the first intervals of a stretch ------
-    plain = inputs_mod.draw(config, seed, dev)
+    plain = domain.draw(config, seed, dev)
     entry = path.Entry(plain, config, traffic, dev)
     _remake(entry)
     _run_intervals(entry, min(WARMUP_INTERVALS, int(traffic["stretch_intervals"])))
     if on_card:
         torch.cuda.synchronize()
     setup_s = time.perf_counter() - t_start
-    log(f"portbench: {cell.name} seed {seed}: {plain.n_particles} particles, "
-        f"set-up {setup_s:.3f} s")
+    log(f"portbench: {cell.name} seed {seed}: {domain.describe(plain)}, set-up {setup_s:.3f} s")
 
     # -- the measured window: whole stretches until ``seconds`` have passed ---
     host = {"steps": 0, "intervals": 0}
@@ -138,15 +143,10 @@ def run_cell(
         traced = trace_mod.capture(lambda: _run_intervals(entry, n_traced), on_card)
         log(f"portbench: traced {traced.window_s:.3f} s, {traced.steps} steps, "
             f"{len(traced.device)} device and {len(traced.host)} host operations")
-        rows = entry.rows()[:n_traced]
+        context = domain.context(entry, entry.rows()[:n_traced], plain)
         while not entry.stretch_done:
             _interval(entry)
-    else:
-        rows = entry.rows()
     memory_peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
-    tile_cells = entry.tile_cells()
-    launches = entry.kernel_launches(rows)
-    alive = entry.alive_per_step(rows)
     outcome = entry.outcome()
     entry.release()
     del entry
@@ -166,10 +166,7 @@ def run_cell(
         for m in cell.end_to_end:
             metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
     else:
-        ctx = SimpleNamespace(
-            trace=traced, launches=launches, tile_cells=tile_cells, alive_per_step=alive,
-            cells=plain.geometry.nz * plain.geometry.nx, host=host, remake_s=remake_s,
-        )
+        ctx = SimpleNamespace(trace=traced, host=host, remake_s=remake_s, **context)
         for m in cell.per_layer:
             v = cell.reader(m["name"])(ctx)
             if v is not None:
@@ -179,8 +176,8 @@ def run_cell(
 
     # -- the output check: the stretch against the plain reference ------------
     t = time.perf_counter()
-    ref = ref_pic.run(plain, outcome_steps(traffic), deposit_leavers=path.DEPOSIT_LEAVERS)
-    numbers = compare.numbers(outcome, ref, plain)
+    ref = domain.reference(plain, traffic, path)
+    numbers = domain.numbers(outcome, ref, plain)
     del ref, outcome
     log(f"portbench: reference and comparison {time.perf_counter() - t:.3f} s")
     log("portbench: readings " + " ".join(f"{k}={v:.6g}" for k, v in numbers.items()))
@@ -197,7 +194,3 @@ def run_cell(
         result["breakdown"] = trace_mod.breakdown(traced)
     result["checks"] = checks
     return result
-
-
-def outcome_steps(traffic: dict) -> int:
-    return int(traffic["lb_interval"]) * int(traffic["stretch_intervals"])

@@ -1,13 +1,12 @@
-"""``step_mfu``: the whole step's physics bound (both kernels over every
-alive particle, the Yee update over every cell) over the traced stretch's
-wall time per step, in percent of the card's peak."""
-from portbench import yardstick
+"""``step_mfu``: the least time the card could take for each traced step's
+work, as the domain bounds it (``ctx.step_bounds_s``; PIC: both kernels
+over every alive particle, the Yee update over every cell), over the
+traced stretch's wall time, in percent of the card's peak."""
 
 
 def read(ctx):
     if not ctx.trace.device:
         return None
-    if not ctx.alive_per_step or ctx.trace.window_s <= 0:
+    if not ctx.step_bounds_s or ctx.trace.window_s <= 0:
         return None
-    bound = sum(yardstick.step_bound_s(a, ctx.cells) for a in ctx.alive_per_step)
-    return 100.0 * bound / ctx.trace.window_s
+    return 100.0 * sum(ctx.step_bounds_s) / ctx.trace.window_s

@@ -1,9 +1,12 @@
 """Everything a cell is made of, found by the names in ``BENCHMARK.json``:
 
-  * ``portbench/configs/<config>.json``: the deployment (scenario, grid,
-    boxes, particles per cell, masses, bin-capacity rule);
-  * ``portbench/traffic/<traffic>.json``: the run (entry point, logical
-    devices, cost strategy, LB interval, stretch length);
+  * ``portbench/configs/<config>.json``: the deployment; its ``domain``
+    (``pic`` where it names none) picks ``portbench/domains/<domain>.py``,
+    which draws its inputs, runs its plain reference and compares (PIC:
+    scenario, grid, boxes, particles per cell, masses, bin-capacity rule);
+  * ``portbench/traffic/<traffic>.json``: the run (its ``entry`` in
+    ``portbench/entries/``, ``stretch_intervals`` and ``trace_intervals``;
+    PIC: logical devices, cost strategy, LB interval);
   * ``portbench/limits/<workload>.json``: the limit of each number the
     output check compares;
   * ``portbench/metrics/<metric>.py``: one reader per per-layer metric.

@@ -28,5 +28,8 @@ def test_harness_loads_no_jax():
 
 
 def test_reference_loads_nothing_of_the_program():
-    names = _loaded("import portbench.reference.pic, portbench.reference.compare, portbench.inputs")
+    names = _loaded(
+        "import portbench.reference.pic, portbench.reference.compare, portbench.inputs, "
+        "portbench.domains.pic"
+    )
     assert not names & ({"repro_torch"} | set(harness.FORBIDDEN))

@@ -26,6 +26,7 @@ def _ctx(device=DEVICE):
     return SimpleNamespace(
         trace=trace.Trace(device=device, host=HOST, window=(0.0, 0.010), steps=2),
         launches=COUNTS, tile_cells=70 * 70, alive_per_step=[305.0, 305.0], cells=64 * 64,
+        step_bounds_s=[yardstick.step_bound_s(305.0, 64 * 64)] * 2,
         host={"steps": 20, "intervals": 2, "dispatch_s": 0.5, "balance_s": 0.1, "fetch_s": 0.2},
         remake_s=[0.004, 0.006],
     )
@@ -44,6 +45,16 @@ def test_rooflines():
     assert _read("roofline.deposition", _ctx()) == pytest.approx(want)
     # executed lanes: 300 particles run two 256-lane chunks, 5 run one
     assert yardstick.executed_lanes(COUNTS[0]).sum() == 768
+
+
+def test_deposition_counts_the_momenta_form():
+    """24 B a lane (z, x, ux, uy, uz, w) and 324 operations, on both paths."""
+    b, f = yardstick.deposition_work(np.array([256.0, 0.0, 1.0]), 70 * 70)
+    assert b == 24 * 512 + 12 * 70 * 70 * 3 + 8 * 3
+    assert f == 512 * 324
+    # the deposit's share of the whole step: 24 B a particle, byte-bound
+    deposit = yardstick.step_bound_s(1e6, 0) - yardstick.bound_s(40e6, 512e6)
+    assert deposit == pytest.approx(24e6 / yardstick.PEAK_BYTES_PER_S)
 
 
 def test_idle_glue_and_step_bound():
